@@ -1,6 +1,6 @@
 // In-process libav video decode + encode (libwmdecode.so, ctypes ABI).
 //
-// TPU-native counterpart of the reference's in-process decoder
+// Counterpart of the reference's in-process decoder
 // (/root/reference/Watermark_GPU/main.cpp:422-437: avformat open, best
 // video stream, multithreaded decoder with FF_THREAD_FRAME preferred over
 // FF_THREAD_SLICE) and its de-padding copy out of the frame linesize

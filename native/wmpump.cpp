@@ -1,6 +1,6 @@
 // wmpump — threaded frame pump for the video pipeline.
 //
-// TPU-native replacement for the reference's synchronous pinned-buffer frame
+// Replacement for the reference's synchronous pinned-buffer frame
 // loop (/root/reference/Watermark_GPU/main.cpp:271-275,319-340): a reader
 // thread prefetches fixed-size frames from a file descriptor (raw .yuv file
 // or an ffmpeg rawvideo pipe) into a ring of buffers so decode overlaps

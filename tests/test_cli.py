@@ -1,4 +1,4 @@
-"""CLI smoke tests on the CPU backend (xla impl, tiny loops)."""
+"""CLI smoke tests on the CPU backend (tiny loops)."""
 
 import os
 import shutil
@@ -66,13 +66,16 @@ def test_cli_invalid_device_falls_back(tmp_path, ini, capsys):
     assert "Correlation [ME]:" in out
 
 
-def test_compilation_cache_setting(tmp_path, ini, capsys):
-    """compilation_cache_dir wires up JAX's persistent executable cache."""
+def test_compilation_cache_setting(tmp_path, ini, capsys, monkeypatch):
+    """compilation_cache_dir wires up JAX's persistent executable cache
+    when JAX_COMPILATION_CACHE_DIR is unset."""
     import jax
 
     from watermarking_gpu_tpu.io.config import load_settings
     from watermarking_gpu_tpu.utils import enable_compilation_cache
 
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    previous = jax.config.jax_compilation_cache_dir
     path, _ = ini
     cache = tmp_path / "cache"
     text = open(path).read().replace(
@@ -81,9 +84,12 @@ def test_compilation_cache_setting(tmp_path, ini, capsys):
     cached_ini.write_text(text)
     assert load_settings(cached_ini).compilation_cache_dir == str(cache)
 
-    got = enable_compilation_cache(cache)
-    assert got == str(cache) and cache.is_dir()
-    assert jax.config.jax_compilation_cache_dir == str(cache)
+    try:
+        got = enable_compilation_cache(cache)
+        assert got == str(cache) and cache.is_dir()
+        assert jax.config.jax_compilation_cache_dir == str(cache)
+    finally:
+        jax.config.update("jax_compilation_cache_dir", previous)
 
 
 def test_cli_missing_settings(capsys):
@@ -146,24 +152,6 @@ raw_video_size = 128x96
     assert "Correlation for frame: 1:" in out
 
 
-def test_cli_image_too_wide(tmp_path, ini, capsys, rng):
-    """Widths beyond the fused kernels' VMEM strip budget are rejected
-    (the reference's texture-max guard, main.cpp:162)."""
-    from PIL import Image
-    from watermarking_gpu_tpu.ops.pallas.fused import max_supported_cols
-    wide_cols = max_supported_cols(p=3) + 2
-    img = np.zeros((64, wide_cols), dtype=np.uint8)
-    wide = tmp_path / "wide.png"
-    Image.fromarray(img).save(wide)
-    path, _ = ini
-    text = open(path).read()
-    text = text.replace(text.split("image = ")[1].split("\n")[0], str(wide))
-    bad = tmp_path / "wide.ini"
-    bad.write_text(text)
-    assert cli.main([str(bad)]) == 1
-    assert "Image dimensions too high" in capsys.readouterr().out
-
-
 def test_cli_bad_psnr(tmp_path, ini, capsys):
     path, _ = ini
     text = open(path).read().replace("psnr = 40.0", "psnr = -1")
@@ -190,6 +178,40 @@ def test_cli_small_image(tmp_path, ini, capsys, rng):
     bad.write_text(text)
     assert cli.main([str(bad)]) == 1
     assert "Image dimensions too low" in capsys.readouterr().out
+
+
+def test_cli_synthetic_inputs_from_seeds(tmp_path, capsys):
+    """``image = synthetic:WxH:SEED`` and an integer watermark seed need no
+    input files; saving is skipped with a NOTE for a synthetic image."""
+    ini = tmp_path / "seed.ini"
+    ini.write_text("""
+[paths]
+image = synthetic:128x96:7
+watermark = 28390211
+
+[options]
+save_watermarked_files_to_disk = true
+
+[parameters]
+p = 3
+psnr = 40.0
+loops_for_test = 1
+""")
+    assert cli.main([str(ini)]) == 0
+    out = capsys.readouterr().out
+    assert "96 rows and 128 columns" in out
+    assert "Correlation [ME]:" in out
+    assert "NOTE: synthetic input image, nothing saved" in out
+
+
+def test_repo_settings_use_seeded_inputs():
+    """The bundled settings.ini runs anywhere: its inputs come from seeds."""
+    from watermarking_gpu_tpu.io.config import load_settings
+
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    settings = load_settings(os.path.join(repo, "settings.ini"))
+    assert settings.image.startswith("synthetic:")
+    assert settings.watermark.isdigit()
 
 
 def test_cli_video_dispatch(tmp_path, rng, capsys):

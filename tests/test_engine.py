@@ -1,11 +1,8 @@
 """Engine-level tests: embed -> detect round trips and the detector contract."""
 
-from functools import partial
-
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from watermarking_gpu_tpu import MaskType, Watermark
@@ -16,7 +13,7 @@ import oracle
 @pytest.fixture(scope="module")
 def engine(small_image, small_watermark):
     h, w = small_image.shape
-    return Watermark(h, w, small_watermark, p=3, psnr=40.0, impl="xla")
+    return Watermark(h, w, small_watermark, p=3, psnr=40.0)
 
 
 def test_detect_matches_oracle(engine, small_image, small_watermark):
@@ -50,7 +47,7 @@ def test_detect_with_matching_mask_type(engine, small_image):
 def test_strong_embed_detects_clearly(small_image, small_watermark):
     """At PSNR 30 the mark is strong enough for an absolute detection bar."""
     h, w = small_image.shape
-    eng = Watermark(h, w, small_watermark, p=3, psnr=30.0, impl="xla")
+    eng = Watermark(h, w, small_watermark, p=3, psnr=30.0)
     for mask_type in (MaskType.NVF, MaskType.ME):
         watermarked, _ = eng.embed(small_image, mask_type=mask_type)
         assert float(eng.detect(np.asarray(watermarked), mask_type)) > 0.5
@@ -77,7 +74,7 @@ def test_psnr_of_embedded_image(engine, small_image):
 def test_unsolvable_system_soft_fail():
     """A constant image yields a singular Rx -> passthrough embed, corr 0."""
     const = np.full((64, 64), 128.0, dtype=np.float32)
-    wm = Watermark(64, 64, 7, p=3, psnr=40.0, impl="xla")
+    wm = Watermark(64, 64, 7, p=3, psnr=40.0)
     out, strength = wm.embed(const, mask_type=MaskType.ME)
     corr = wm.detect(const, MaskType.ME)
     if float(strength) == 0.0:  # singular solve detected
@@ -88,7 +85,7 @@ def test_unsolvable_system_soft_fail():
 
 
 def test_dimension_guards(small_image):
-    wm = Watermark(*small_image.shape, 3, p=3, psnr=40.0, impl="xla")
+    wm = Watermark(*small_image.shape, 3, p=3, psnr=40.0)
     with pytest.raises(ValueError):
         wm.embed(small_image[:-1])
     with pytest.raises(ValueError):
@@ -105,23 +102,24 @@ def test_dimension_guards(small_image):
 
 
 def test_reinitialize(small_image, small_watermark):
-    wm = Watermark(16, 16, 99, p=3, psnr=40.0, impl="xla")
+    wm = Watermark(16, 16, 99, p=3, psnr=40.0)
     wm.reinitialize(small_watermark, *small_image.shape)
     corr = float(wm.detect(small_image, MaskType.ME))
     assert np.isfinite(corr)
 
 
 def test_reinitialize_invalidates_padded_watermark(rng):
-    """The engine-cached RAW_PAD-padded watermark must not go stale when
-    reinitialize() swaps the matrix (same dims, raw-capable geometry)."""
-    h, w = 512, 512  # raw-capable: the padded-watermark cache is active
+    """Nothing derived from the watermark may go stale when reinitialize()
+    swaps the matrix at the same dims (the compiled programs stay cached;
+    the watermark is their argument)."""
+    h, w = 512, 512
     yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
     base = 110 + 70 * np.sin(xx / 9.0) * np.cos(yy / 7.0)
     noise = rng.normal(0, 14, (h, w))
     image = np.clip(base + noise, 0, 255).astype(np.float32)
     wm_a = rng.normal(size=(h, w)).astype(np.float32)
     wm_b = rng.normal(size=(h, w)).astype(np.float32)
-    eng = Watermark(h, w, wm_a, p=3, psnr=30.0, impl="pallas")
+    eng = Watermark(h, w, wm_a, p=3, psnr=30.0)
     marked_a, _ = eng.embed(image, mask_type=MaskType.ME)
     corr_a = float(eng.detect(np.asarray(marked_a), MaskType.ME))
     assert corr_a > 0.5
@@ -133,27 +131,11 @@ def test_reinitialize_invalidates_padded_watermark(rng):
     assert float(eng.detect(np.asarray(marked_b), MaskType.ME)) > 0.5
 
 
-def test_engine_pallas_impl_matches_xla(small_image, small_watermark):
-    """Engine-level parity: the fused Pallas path (interpreter on CPU)
-    reproduces the XLA oracle through the public API."""
-    h, w = small_image.shape
-    ex = Watermark(h, w, small_watermark, p=3, psnr=40.0, impl="xla")
-    ep = Watermark(h, w, small_watermark, p=3, psnr=40.0, impl="pallas")
-    for mask_type in (MaskType.NVF, MaskType.ME):
-        ox, sx = ex.embed(small_image, mask_type=mask_type)
-        op, sp = ep.embed(small_image, mask_type=mask_type)
-        assert float(sp) == pytest.approx(float(sx), rel=2e-4)
-        np.testing.assert_allclose(np.asarray(op), np.asarray(ox), atol=0.1)
-        cx = float(ex.detect(np.asarray(ox), mask_type))
-        cp = float(ep.detect(np.asarray(ox), mask_type))
-        assert cp == pytest.approx(cx, abs=2e-4)
-
-
 def test_detection_survives_u8_quantization(small_image, small_watermark):
     """The video path stores watermarked luma as u8 (truncating cast,
     main.cpp:356); detection must survive the quantization."""
     h, w = small_image.shape
-    eng = Watermark(h, w, small_watermark, p=3, psnr=32.0, impl="xla")
+    eng = Watermark(h, w, small_watermark, p=3, psnr=32.0)
     marked, _ = eng.embed(small_image, mask_type=MaskType.ME)
     quantized = np.asarray(marked).astype(np.uint8).astype(np.float32)
     corr_q = float(eng.detect(quantized, MaskType.ME))
@@ -170,7 +152,7 @@ def test_u8_ingest_matches_f32(small_image, small_watermark):
     h, w = small_image.shape
     u8 = small_image.astype(np.uint8)
     f32 = u8.astype(np.float32)
-    eng = Watermark(h, w, small_watermark, p=3, psnr=40.0, impl="xla")
+    eng = Watermark(h, w, small_watermark, p=3, psnr=40.0)
     assert float(eng.detect(u8, MaskType.ME)) == float(
         eng.detect(f32, MaskType.ME))
     m_u8, s_u8 = eng.embed(u8, mask_type=MaskType.ME)
@@ -179,8 +161,7 @@ def test_u8_ingest_matches_f32(small_image, small_watermark):
     assert float(s_u8) == float(s_f32)
 
     # the u8-out video path truncates exactly like a host-side u8 cast
-    batched = BatchedWatermark(h, w, small_watermark, p=3, psnr=40.0,
-                               impl="xla")
+    batched = BatchedWatermark(h, w, small_watermark, p=3, psnr=40.0)
     stack = np.stack([u8, u8])
     marked_u8, strengths = batched.embed_luma_u8(stack, MaskType.ME)
     ref_f32, ref_s = batched.embed(stack.astype(np.float32),
@@ -193,15 +174,9 @@ def test_u8_ingest_matches_f32(small_image, small_watermark):
 
 def test_me_generalizes_beyond_p3(small_image, small_watermark):
     """ME at p=5 runs the generalized 24-tap predictor — the capability the
-    reference rejects (main.cpp:88-89). A pallas engine keeps the fused
-    path for ME p>3 since the wide lag-Gram kernel landed (measured 1.8x
-    the pure-XLA formulation at 1080p; Watermark._impl_for), and the
-    engine pre-pads the call-invariant watermark for it."""
+    reference rejects (main.cpp:88-89)."""
     h, w = small_image.shape
-    eng = Watermark(h, w, small_watermark, p=5, psnr=40.0, impl="pallas")
-    assert eng._impl_for(MaskType.ME) == "pallas"
-    assert eng._impl_for(MaskType.NVF) == "pallas"
-    assert eng._padded_watermark(MaskType.ME) is not None
+    eng = Watermark(h, w, small_watermark, p=5, psnr=40.0)
     marked, s = eng.embed(small_image, mask_type=MaskType.ME)
     assert float(s) > 0
     corr = float(eng.detect(np.asarray(marked), MaskType.ME))
@@ -218,229 +193,48 @@ def test_me_generalizes_beyond_p3(small_image, small_watermark):
 
 def test_warmup(small_image, small_watermark):
     h, w = small_image.shape
-    eng = Watermark(h, w, small_watermark, p=3, psnr=40.0, impl="xla")
+    eng = Watermark(h, w, small_watermark, p=3, psnr=40.0)
     eng.warmup(channels=3)
-    assert ("embed", MaskType.ME, "xla") in eng._fn_cache
-    assert ("detect", MaskType.NVF, "xla") in eng._fn_cache
+    assert ("embed", MaskType.ME) in eng._fn_cache
+    assert ("detect", MaskType.NVF) in eng._fn_cache
 
 
 def test_warmup_single_mask(small_image, small_watermark):
-    """warmup(mask_type=...) compiles only that mask's programs — at
-    flip-prone geometries each embed pays an uncacheable live compile
-    (utils/layouts.py), so a single-mask serving restart halves warmup."""
+    """warmup(mask_type=...) compiles only that mask's programs, so a
+    single-mask serving restart compiles half as much."""
     h, w = small_image.shape
-    eng = Watermark(h, w, small_watermark, p=3, psnr=40.0, impl="xla")
+    eng = Watermark(h, w, small_watermark, p=3, psnr=40.0)
     eng.warmup(mask_type="me")
-    assert ("embed", MaskType.ME, "xla") in eng._fn_cache
-    assert ("detect", MaskType.ME, "xla") in eng._fn_cache
-    assert ("embed", MaskType.NVF, "xla") not in eng._fn_cache
-    assert ("detect", MaskType.NVF, "xla") not in eng._fn_cache
+    assert ("embed", MaskType.ME) in eng._fn_cache
+    assert ("detect", MaskType.ME) in eng._fn_cache
+    assert ("embed", MaskType.NVF) not in eng._fn_cache
+    assert ("detect", MaskType.NVF) not in eng._fn_cache
 
 
-@pytest.mark.parametrize("mask,impl,p", [
-    ("me", "xla", 3), ("me", "pallas", 3), ("me", "xla", 5),
-    ("me", "pallas", 5), ("me", "pallas", 7), ("me", "xla", 9),
-    ("me", "pallas", 9),
-    ("nvf", "xla", 3), ("nvf", "xla", 5), ("nvf", "pallas", 5)])
-def test_detect_many_matches_looped_detect(small_image, rng, mask, impl, p):
+@pytest.mark.parametrize("mask,p", [
+    ("me", 3), ("me", 5), ("me", 7), ("me", 9),
+    ("nvf", 3), ("nvf", 5), ("nvf", 9)])
+def test_detect_many_matches_looped_detect(small_image, rng, mask, p):
     """detect_many (one dispatch, analysis shared across N candidates)
     agrees with N independent detect_pipeline calls — for both mask types
-    (the NVF branch shares the nvf_mask + p=3 predictor analysis). The
-    pallas rows run the fused multi-candidate kernel (one strip pass per
-    candidate chunk); me/pallas at p>3 additionally routes its analysis
-    through the wide lag-Gram kernel. The p=7/9 rows pin the chunked
-    kernel at chip-compiled DETECT_MANY_PROVEN configurations that
-    admit the generalized windows (interpreter-mode parity; on-chip
-    parity 2e-08, tools/calibrate_detect_many.py --verify-only)."""
+    (the NVF branch shares the nvf_mask + p=3 predictor analysis) and every
+    window."""
     from watermarking_gpu_tpu.ops.pipelines import (detect_many_pipeline,
                                                     detect_pipeline)
     h, w = small_image.shape
     wms = rng.normal(size=(4, h, w)).astype(np.float32)
     got = np.asarray(detect_many_pipeline(
-        jnp.asarray(small_image), jnp.asarray(wms), mask, p=p, impl=impl))
+        jnp.asarray(small_image), jnp.asarray(wms), mask, p=p))
     want = [float(detect_pipeline(jnp.asarray(small_image),
-                                  jnp.asarray(wm), mask, p=p, impl=impl))
+                                  jnp.asarray(wm), mask, p=p))
             for wm in wms]
     np.testing.assert_allclose(got, want, atol=3e-4)
     # batch-polymorphic over images: (B, H, W) x (N, H, W) -> (B, N)
     stack = np.stack([small_image, small_image[::-1].copy()])
     got_b = np.asarray(detect_many_pipeline(
-        jnp.asarray(stack), jnp.asarray(wms), mask, p=p, impl=impl))
+        jnp.asarray(stack), jnp.asarray(wms), mask, p=p))
     assert got_b.shape == (2, 4)
     np.testing.assert_allclose(got_b[0], got, atol=1e-5)
-
-
-def test_detect_many_shrunk_nc_matches_xla(rng):
-    """At 4K-class widths the generalized-ME chunk budget cannot hold
-    nc=8 candidate planes, so detect_many_chunk SHRINKS nc until the
-    minimum strip fits (r4: the fused kernel then admits 4K at p=7 via
-    nc=4 instead of falling back to the XLA formulation — chip-verified,
-    parity 5.6e-09; p=9 at 4K honestly stays XLA — the nc=1 calibration
-    leg measured its ring overhead dominating the live set almost
-    completely, see fused.DETECT_MANY_PROVEN). Pin the shrunk-nc
-    routing and its parity — n=10 with nc=4 also exercises the bank's
-    pad-to-chunk-multiple path (10 -> 12)."""
-    from watermarking_gpu_tpu.ops.pallas.fused import detect_many_chunk
-    from watermarking_gpu_tpu.ops.pipelines import (
-        detect_many_pipeline, fused_detect_many_applies)
-
-    h, w, p = 48, 3840, 7
-    nc, _, _, _ = detect_many_chunk(10, h, w, "me", p)
-    assert nc == 4              # shrunk from 8; geometry chosen for it
-    assert fused_detect_many_applies(10, h, w, "me", p, "pallas")
-    img = rng.normal(120.0, 30.0, size=(h, w)).astype(np.float32)
-    wms = rng.normal(size=(10, h, w)).astype(np.float32)
-    got = np.asarray(detect_many_pipeline(
-        jnp.asarray(img), jnp.asarray(wms), "me", p=p, impl="pallas"))
-    want = np.asarray(detect_many_pipeline(
-        jnp.asarray(img), jnp.asarray(wms), "me", p=p, impl="xla"))
-    np.testing.assert_allclose(got, want, atol=3e-4)
-
-
-def test_detect_many_plane_budget_model_invariants(monkeypatch):
-    """Pin the chunk-VMEM admission design (fused.DETECT_MANY_PROVEN):
-    a configuration is admitted only when a chip-compiled fact
-    dominates it in all four monotone dimensions (nc, rows, lanes,
-    plane) — r4 measured that no closed-form plane budget is sound
-    (scoped VMEM grows with frame rows past ~1.5k and with cols beyond
-    the plane units at tall heights; a linear nc model over-predicts by
-    4-25%). Pin: (a) admission is monotone in each dimension; (b)
-    in-between chunk sizes round UP to the next fact tier; (c) the
-    fused frontier (r5 campaign) — 8K fused at ME p=3/p=5 (nc=4) and
-    NVF (nc=2: nc=4's plane compiles at 1,440 rows but overflows at
-    2,160 — the rows trap this design exists to stop), 4K ME p=7
-    (nc=4), QHD ME p=9 (nc=1), portrait 8K (7,680 rows) fused at ME
-    p=3/5/7 and NVF, tall-narrow fused at nc=8 for every window, XLA
-    beyond, and NOTHING above 7,680 rows. The open corners are
-    chip-proven VMEM-maximal: ME p=9 @ 4K lanes and ME p=7 @ 8K lanes
-    overflow the 16M scoped limit at the MINIMUM nc=1/strip=8
-    configuration (19.15M / 24.83M measured)."""
-    from watermarking_gpu_tpu.ops.pallas.fused import (
-        DETECT_MANY_PROVEN, _PLANE_BUDGET_OVERRIDE,
-        detect_many_chunk, detect_many_plane_budget, detect_many_supported)
-
-    # (a) every fact witnesses itself and any dominated configuration
-    for mask, p in (("nvf", 9), ("me", 3), ("me", 5), ("me", 7),
-                    ("me", 9)):
-        key = p if mask == "me" and p > 3 else (3 if mask == "me"
-                                                else "nvf")
-        for f_nc, f_rows, f_lanes, f_plane in DETECT_MANY_PROVEN[key]:
-            assert detect_many_plane_budget(
-                mask, p, f_nc, f_rows, f_lanes) >= f_plane
-            # a taller frame or wider lanes must never admit MORE
-            assert (detect_many_plane_budget(mask, p, f_nc, f_rows + 8,
-                                             f_lanes)
-                    <= detect_many_plane_budget(mask, p, f_nc, f_rows,
-                                                f_lanes))
-            assert (detect_many_plane_budget(mask, p, f_nc, f_rows,
-                                             f_lanes + 128)
-                    <= detect_many_plane_budget(mask, p, f_nc, f_rows,
-                                                f_lanes))
-        budgets = [detect_many_plane_budget(mask, p, nc, 4320, 2048)
-                   for nc in (8, 4, 2, 1)]
-        assert budgets == sorted(budgets)          # shrink frees planes
-        # (b) tier rounding: nc=3 uses the nc=4 tier, nc=5..7 the nc=8
-        assert (detect_many_plane_budget(mask, p, 3, 1080, 2048)
-                == detect_many_plane_budget(mask, p, 4, 1080, 2048))
-        assert (detect_many_plane_budget(mask, p, 6, 1080, 2048)
-                == detect_many_plane_budget(mask, p, 8, 1080, 2048))
-
-    # (c) the frontier (every geometry's strip plane is chip-compiled)
-    assert detect_many_chunk(64, 4320, 7680, "me", 3)[0] == 4
-    assert detect_many_chunk(64, 4320, 7680, "me", 5)[0] == 4
-    assert detect_many_chunk(64, 4320, 7680, "nvf", 9)[0] == 2
-    for mask, p in (("me", 3), ("nvf", 9), ("me", 5)):
-        assert detect_many_supported(64, 4320, 7680, mask, p)
-    assert detect_many_supported(64, 2160, 3840, "me", 7)
-    assert detect_many_chunk(64, 2160, 3840, "me", 7)[0] == 4
-    assert detect_many_chunk(64, 2160, 3840, "me", 5)[0] == 4  # nc=8
-    # overflows scoped VMEM at 4K even at 2,160 rows and even at the
-    # minimum nc=1/strip=8 (r5: 19.15M vs the 16M limit)
-    assert not detect_many_supported(64, 2160, 3840, "me", 9)
-    # ME p=7 at 8K lanes is likewise VMEM-maximal (r5: 24.83M at nc=1)
-    assert not detect_many_supported(64, 4320, 7680, "me", 7)
-    assert detect_many_supported(64, 1440, 2560, "me", 9)      # QHD nc=1
-    assert detect_many_chunk(64, 1440, 2560, "me", 9)[0] == 1
-    # 1080p stays fused at nc=8 for every generalized window
-    for p in (5, 7, 9):
-        assert detect_many_supported(64, 1080, 1920, "me", p)
-        assert detect_many_chunk(64, 1080, 1920, "me", p)[0] == 8
-    # portrait 8K (r5 tall campaign): fused at ME p=3/5 (nc=8/4),
-    # p=7 (nc=2), NVF (nc=4); p=9 stays XLA (no fact at 4352 lanes)
-    assert detect_many_chunk(64, 7680, 4320, "me", 3)[0] == 8
-    assert detect_many_chunk(64, 7680, 4320, "me", 5)[0] == 4
-    assert detect_many_chunk(64, 7680, 4320, "me", 7)[0] == 2
-    assert detect_many_chunk(64, 7680, 4320, "nvf", 9)[0] == 4
-    for mask, p in (("me", 3), ("me", 5), ("me", 7), ("nvf", 9)):
-        assert detect_many_supported(64, 7680, 4320, mask, p)
-    assert not detect_many_supported(64, 7680, 4320, "me", 9)
-    # tall-narrow keeps nc=8 for every window; p=7 drops to the
-    # strip-16 fact (strip 24 overflows at 7,680 rows — the rows trap)
-    for p in (3, 5, 7, 9):
-        assert detect_many_supported(64, 7680, 1920, "me", p)
-        assert detect_many_chunk(64, 7680, 1920, "me", p)[0] == 8
-    assert detect_many_chunk(64, 4320, 1920, "me", 7)[2] == 24
-    assert detect_many_chunk(64, 7680, 1920, "me", 7)[2] <= 16
-    # nothing is admitted above the tallest witnessed frame
-    assert not detect_many_supported(64, 7688, 1920, "me", 3)
-    assert detect_many_supported(64, 7680, 1920, "me", 3)
-
-    # the calibration override hook is consulted before the facts — but
-    # ONLY under WMTPU_CALIBRATION (a stray entry must never replace
-    # chip-proven facts in production admission, r4 VERDICT weak #5)
-    _PLANE_BUDGET_OVERRIDE[(7, 4)] = 12345
-    try:
-        production = detect_many_plane_budget("me", 7, 4, 4320, 7808)
-        assert production != 12345      # inert without the env flag
-        monkeypatch.setenv("WMTPU_CALIBRATION", "1")
-        assert detect_many_plane_budget("me", 7, 4, 4320, 7808) == 12345
-    finally:
-        del _PLANE_BUDGET_OVERRIDE[(7, 4)]
-
-
-def test_chip_facts_gated_on_stack_version(monkeypatch):
-    """The chip-calibrated fact tables only apply to the (jax, device)
-    stack they were measured on (common.CHIP_FACTS_STACK): on a mismatch
-    every fact-gated envelope must shrink to its XLA fallback instead of
-    admitting a geometry that would fail at compile time (r4 VERDICT
-    weak #4). Off-TPU the facts trivially hold (no scoped-VMEM limit)."""
-    from watermarking_gpu_tpu.ops.pallas import common
-    from watermarking_gpu_tpu.ops.pallas.fused import (
-        detect_many_plane_budget, detect_many_supported)
-    from watermarking_gpu_tpu.ops.pallas.me_gram_wide import (
-        wide_gram_supported)
-    from watermarking_gpu_tpu.ops.pallas.predict_kernel import (
-        predict_supported)
-    from watermarking_gpu_tpu.ops.pipelines import (
-        _wide_me_fallback_geometry)
-    from watermarking_gpu_tpu.parallel.spatial import wide_shard_supported
-
-    # this CPU suite: facts valid (interpreter mode has no VMEM limit)
-    assert common.chip_facts_valid()
-    assert detect_many_supported(64, 1080, 1920, "me", 3)
-    assert wide_gram_supported(1080, 1920, 5)
-
-    # simulate a mismatched stack (a jax upgrade / new TPU generation)
-    monkeypatch.setattr(common, "_STACK_OK", False)
-    assert not common.chip_facts_valid()
-    assert detect_many_plane_budget("me", 3, 8, 1080, 2048) == 0
-    assert not detect_many_supported(64, 1080, 1920, "me", 3)
-    assert not wide_gram_supported(1080, 1920, 5)
-    assert not wide_shard_supported(270, 1080, 1920, 5)
-    assert _wide_me_fallback_geometry(1080, 1920, "me", 5)
-    assert not predict_supported(1920, 5)   # chip-bisected wide budget
-    assert predict_supported(1920, 3)       # p=3 keeps its wide margin
-    # detect_many_chunk still returns a well-formed (unsupported) answer
-    from watermarking_gpu_tpu.ops.pallas.fused import detect_many_chunk
-    nc, pad, strip, rows_padded = detect_many_chunk(64, 1080, 1920,
-                                                    "me", 3)
-    assert strip >= 8 and rows_padded % strip == 0
-
-    # the trust escape hatch re-admits after operator verification
-    monkeypatch.setattr(common, "_STACK_OK", None)
-    monkeypatch.setenv("WMTPU_TRUST_CHIP_FACTS", "1")
-    assert common.chip_facts_valid()
-    monkeypatch.setattr(common, "_STACK_OK", None)   # recompute next use
 
 
 def test_detect_many_identifies_the_embedded_watermark(small_image, rng):
@@ -448,8 +242,7 @@ def test_detect_many_identifies_the_embedded_watermark(small_image, rng):
     h, w = small_image.shape
     candidates = rng.normal(size=(6, h, w)).astype(np.float32)
     true_index = 2
-    eng = Watermark(h, w, candidates[true_index], p=3, psnr=38.0,
-                    impl="xla")
+    eng = Watermark(h, w, candidates[true_index], p=3, psnr=38.0)
     marked, _ = eng.embed(small_image, mask_type=MaskType.ME)
     corrs = np.asarray(eng.detect_many(np.asarray(marked), candidates))
     assert corrs.shape == (6,)
@@ -461,13 +254,13 @@ def test_detect_many_identifies_the_embedded_watermark(small_image, rng):
 
 
 def test_detect_many_chunks_candidate_axis(small_image, rng, monkeypatch):
-    """With a tiny HBM budget the engine splits the candidate bank into
+    """With a tiny memory budget the engine splits the candidate bank into
     fixed-shape chunks (padded remainder, one compiled program) and the
     concatenated result is identical to one dispatch; batched images go
     through the same path."""
     h, w = small_image.shape
     cands = rng.normal(size=(7, h, w)).astype(np.float32)
-    eng = Watermark(h, w, cands[0], p=3, psnr=40.0, impl="xla")
+    eng = Watermark(h, w, cands[0], p=3, psnr=40.0)
     full = np.asarray(eng.detect_many(small_image, cands))
     monkeypatch.setattr(Watermark, "_DETECT_MANY_BUDGET_BYTES",
                         3 * 2 * h * w * 4)   # 3 candidates per chunk
@@ -479,69 +272,28 @@ def test_detect_many_chunks_candidate_axis(small_image, rng, monkeypatch):
     np.testing.assert_allclose(got[0], full, atol=1e-6)
 
 
-def test_detect_many_wide_me_downgrades_instead_of_raising(rng):
-    """ME p=9 at 8K-class widths: the chunked kernel's VMEM gate fails
-    (even at the shrunk nc=1 chunk) AND the strip predict kernel cannot
-    fit the width, so the non-fused branch must downgrade to the XLA
-    formulation instead of letting prediction_error_pallas raise (r3
-    advisor high finding). Trace-only at the true 8K geometry; numeric
-    parity at a short-row variant.
-
-    (The r4 chip calibration + adaptive-nc shrink moved the fused
-    frontier out to ~4.1k-pixel widths at p=7 (4K chip-verified) and
-    ~2.3k at p=9 — 8K is far beyond both.)"""
-    from watermarking_gpu_tpu.ops.pallas.fused import detect_many_supported
-    from watermarking_gpu_tpu.ops.pallas.predict_kernel import \
-        predict_supported
-    from watermarking_gpu_tpu.ops.pipelines import detect_many_pipeline
-
-    assert not detect_many_supported(4, 4320, 7680, "me", 9)
-    assert not predict_supported(7680, 9)
-    out = jax.eval_shape(
-        partial(detect_many_pipeline, mask_type="me", p=9, impl="pallas"),
-        jax.ShapeDtypeStruct((4320, 7680), jnp.float32),
-        jax.ShapeDtypeStruct((4, 4320, 7680), jnp.float32))
-    assert out.shape == (4,)
-
-    h, w = 48, 7680            # same routing, cheap enough to execute
-    assert not detect_many_supported(8, h, w, "me", 9)
-    assert not predict_supported(w, 9)
-    img = rng.normal(120.0, 30.0, size=(h, w)).astype(np.float32)
-    wms = rng.normal(size=(8, h, w)).astype(np.float32)
-    got = np.asarray(detect_many_pipeline(
-        jnp.asarray(img), jnp.asarray(wms), "me", p=9, impl="pallas"))
-    want = np.asarray(detect_many_pipeline(
-        jnp.asarray(img), jnp.asarray(wms), "me", p=9, impl="xla"))
-    np.testing.assert_allclose(got, want, atol=1e-6)
-
-
 def test_detect_many_chunk_budget_uses_fallback_estimate(rng, monkeypatch):
-    """Where the fused multi-candidate kernel will NOT run (its VMEM gate
-    fails), the HBM chunk budget must size chunks by the XLA formulation's
-    (B*chunk, H, W) u/e_u buffers — not the fused kernel's small
-    per-candidate estimate (r3 advisor medium finding)."""
+    """The chunk budget sizes chunks by the (B*chunk, H, W) u/e_u
+    prediction buffers of the shared-analysis formulation."""
     import watermarking_gpu_tpu.models.watermark as wm_mod
 
-    h, w = 64, 7680            # ME p=9: fused unsupported at this width
-                               # (post-adaptive-nc p=9 frontier is ~2.3k)
+    h, w = 64, 7680
     seen = []
 
-    def stub_pipeline(image, watermarks, mask_type, p, impl):
-        seen.append((watermarks.shape[0], impl))
+    def stub_pipeline(image, watermarks, mask_type, p):
+        seen.append(watermarks.shape[0])     # runs once per traced shape
         lead = image.shape[:-2]
         return jnp.zeros(lead + (watermarks.shape[0],), jnp.float32)
 
     monkeypatch.setattr(wm_mod, "detect_many_pipeline", stub_pipeline)
-    # bypass jit so the stub records every dispatch, not just the trace
-    monkeypatch.setattr(wm_mod, "pinned_jit", lambda f, **kw: f)
-    budget = 6 * 2 * h * w * 4   # 6 xla-estimate candidates per chunk
+    budget = 6 * 2 * h * w * 4   # 6 candidates per chunk
     monkeypatch.setattr(Watermark, "_DETECT_MANY_BUDGET_BYTES", budget)
-    eng = Watermark(h, w, 7, p=9, psnr=40.0, impl="pallas")
+    eng = Watermark(h, w, 7, p=9, psnr=40.0)
     cands = rng.normal(size=(12, h, w)).astype(np.float32)
-    eng.detect_many(np.zeros((h, w), np.float32), cands)
-    # fused estimate (1.3*H*W*4/candidate) would put all 12 in one chunk;
-    # the XLA estimate must split into 6-candidate chunks
-    assert [n for n, _ in seen] == [6, 6]
+    out = eng.detect_many(np.zeros((h, w), np.float32), cands)
+    assert out.shape == (12,)
+    # two 6-candidate chunks share one compiled program
+    assert seen == [6]
 
 
 def test_nvf_constant_image_keeps_psnr():
@@ -550,7 +302,7 @@ def test_nvf_constant_image_keeps_psnr():
     PSNR target regardless of the mask's scale, and nothing goes
     non-finite (the 0*inf hazard the naive formula would have)."""
     const = np.full((64, 64), 128.0, dtype=np.float32)
-    eng = Watermark(64, 64, 7, p=3, psnr=40.0, impl="xla")
+    eng = Watermark(64, 64, 7, p=3, psnr=40.0)
     out, s = eng.embed(const, mask_type=MaskType.NVF)
     out = np.asarray(out)
     assert np.isfinite(out).all() and np.isfinite(float(s))

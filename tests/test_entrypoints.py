@@ -1,7 +1,7 @@
-"""The driver-facing entry points (__graft_entry__.py) under pytest.
+"""The entry points of __graft_entry__.py under pytest.
 
-The driver compile-checks entry() on the real TPU and runs
-dryrun_multichip with virtual devices; covering them here keeps their
+entry() is the flagship step that compiles on the GPU, and
+dryrun_multichip runs on virtual devices; covering them here keeps their
 parity assertions part of the ordinary suite too.
 """
 
@@ -16,14 +16,14 @@ import __graft_entry__ as graft  # noqa: E402
 
 
 def test_entry_traces():
-    """The flagship 1080p forward step traces/lowers cleanly (XLA impl on
-    the CPU backend; the driver compiles the Pallas variant on TPU)."""
+    """The flagship 1080p forward step traces/lowers cleanly on the CPU
+    backend (on the GPU its Gram runs the Triton kernel)."""
     fn, args = graft.entry()
     lowered = jax.jit(fn).lower(*args)
     assert "1080" in str(lowered.in_avals)
 
 
 def test_dryrun_multichip_parity():
-    """Full hybrid DP x SP step on the 8-device virtual mesh; asserts both
-    shard implementations match the unsharded pipeline internally."""
+    """Full hybrid DP x SP step on the 8-device virtual mesh; asserts the
+    sharded results match the unsharded pipeline internally."""
     graft.dryrun_multichip(len(jax.devices()))

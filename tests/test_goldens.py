@@ -5,7 +5,7 @@ files (512^2, 480p, 720p — ``samples/make_w.bat``, seed 28390211). The
 goldens in ``goldens.json`` are this framework's own XLA-oracle outputs,
 recorded once (provenance: generated on the CPU backend, jax 0.9) — they pin
 the full embed->detect numerics (strengths to 1e-4 relative, correlations to
-2e-4 absolute, which also brackets the Pallas path) so any semantic
+2e-4 absolute) so any semantic
 regression in masks, solve, embedding or detection trips these tests.
 """
 
@@ -42,11 +42,9 @@ def test_bundled_sample_goldens(name, mask_type):
     watermark = jnp.asarray(load_watermark(wm_path, rows, cols))
     sf = strength_factor(40.0)
 
-    marked, strength = embed_pipeline(gray, rgb, watermark, sf, mask_type,
-                                      impl="xla")
-    corr = detect_pipeline(rgb_to_gray(marked), watermark, mask_type,
-                           impl="xla")
-    clean = detect_pipeline(gray, watermark, mask_type, impl="xla")
+    marked, strength = embed_pipeline(gray, rgb, watermark, sf, mask_type)
+    corr = detect_pipeline(rgb_to_gray(marked), watermark, mask_type)
+    clean = detect_pipeline(gray, watermark, mask_type)
 
     want = GOLDENS[name][mask_type]
     assert float(strength) == pytest.approx(want["strength"], rel=1e-4)
@@ -104,10 +102,9 @@ def test_4k_non_divisible_sample():
     gray = jnp.asarray(gray)
     sf = strength_factor(40.0)
 
-    marked, strength = embed_pipeline(gray, gray, watermark, sf, "me",
-                                      impl="xla")
-    corr = float(detect_pipeline(marked, watermark, "me", impl="xla"))
-    clean = float(detect_pipeline(gray, watermark, "me", impl="xla"))
+    marked, strength = embed_pipeline(gray, gray, watermark, sf, "me")
+    corr = float(detect_pipeline(marked, watermark, "me"))
+    clean = float(detect_pipeline(gray, watermark, "me"))
     assert float(strength) > 0
     assert corr > clean + 0.3
     assert abs(clean) < 0.05
@@ -120,9 +117,8 @@ def test_4k_non_divisible_sample():
 def test_wide_window_goldens(p, mask_type):
     """Regression pin for the generalized wide windows (p in {5,7,9} — the
     capability the reference TODO'd away, main.cpp:88-89) on the real 512
-    sample: recorded XLA-oracle outputs, CPU backend, jax 0.9. The
-    cross-impl parity tests (test_pallas.py) catch pallas-vs-xla drift;
-    this catches BOTH drifting together. ME tolerances are wider than
+    sample: recorded XLA-oracle outputs, CPU backend, jax 0.9. ME
+    tolerances are wider than
     p=3's: the wide Gram's conditioning amplifies f32 reduction-order
     noise to ~2e-3 rel in strength (see tools/check_goldens.py)."""
     img_path, wm_path, rows, cols = CASES["512"]
@@ -131,11 +127,9 @@ def test_wide_window_goldens(p, mask_type):
     watermark = jnp.asarray(load_watermark(wm_path, rows, cols))
     sf = strength_factor(40.0)
 
-    marked, strength = embed_pipeline(gray, rgb, watermark, sf, mask_type,
-                                      impl="xla", p=p)
-    corr = detect_pipeline(rgb_to_gray(marked), watermark, mask_type,
-                           impl="xla", p=p)
-    clean = detect_pipeline(gray, watermark, mask_type, impl="xla", p=p)
+    marked, strength = embed_pipeline(gray, rgb, watermark, sf, mask_type, p=p)
+    corr = detect_pipeline(rgb_to_gray(marked), watermark, mask_type, p=p)
+    clean = detect_pipeline(gray, watermark, mask_type, p=p)
 
     want = GOLDENS["wide_512"][f"p{p}"][mask_type]
     strength_rel = 2e-3 if mask_type == "me" else 1e-4

@@ -76,6 +76,32 @@ def test_image_roundtrip(tmp_path, rng):
     assert gray.shape == (20, 30)
 
 
+def test_synthetic_image_from_seed():
+    got = load_image_rgb("synthetic:64x48:3")
+    assert got.shape == (48, 64, 3) and got.dtype == np.float32
+    assert 0.0 <= got.min() and got.max() <= 255.0 and got.std() > 10.0
+    np.testing.assert_array_equal(got, load_image_rgb("synthetic:64x48:3"))
+    assert not np.array_equal(got, load_image_rgb("synthetic:64x48:4"))
+    with pytest.raises(ValueError, match="WxH:SEED"):
+        load_image_rgb("synthetic:64x48")
+
+
+def test_package_import_needs_no_pillow():
+    """Importing the package and running an engine needs only JAX and
+    NumPy; Pillow loads only when an image file is read or written."""
+    import subprocess
+    import sys
+
+    code = ("import sys; import watermarking_gpu_tpu as w; "
+            "e = w.Watermark(64, 64, 7); e.detect(e.embed("
+            "w.io.load_image_gray('synthetic:64x64:1'))[0]); "
+            "assert 'PIL' not in sys.modules, 'PIL imported'")
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    subprocess.run([sys.executable, "-c", code], cwd=repo, env=env,
+                   check=True, timeout=300)
+
+
 def test_add_suffix():
     assert add_suffix_before_extension("a/b.png", "_W_ME") == "a/b_W_ME.png"
     assert add_suffix_before_extension("noext", "_X") == "noext_X"

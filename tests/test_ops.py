@@ -33,10 +33,9 @@ def test_neighbor_stack_clamps_edges(small_image):
 def test_me_normal_equations_match_oracle(small_image, p):
     """p=3 is the reference predictor; p in {5, 7, 9} is the generalized
     (p*p-1)-tap extension the reference TODO'd away (main.cpp:88-89).
-    This is the only oracle check of the vectorized wide assembly that is
-    INDEPENDENT of ``me_gram_wide._assemble_wide`` (the p>3 JAX path routes
-    through it, so pallas-vs-xla parity tests cannot catch an assembly
-    bug); p=7/9 must stay parametrized here."""
+    This is the oracle check of the vectorized wide assembly
+    (``me.assemble_lag_gram``) against a loop oracle that shares no code
+    with it; p=7/9 must stay parametrized here."""
     rx_m, rx_v = ops.me_normal_equations(jnp.asarray(small_image), p)
     want_m, want_v = oracle.me_normal_equations(small_image, p)
     assert rx_m.shape == (p * p - 1, p * p - 1)

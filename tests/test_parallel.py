@@ -1,4 +1,4 @@
-"""Multi-chip tests on the virtual 8-device CPU mesh: DP and SP paths must
+"""Multi-device tests on the virtual 8-device CPU mesh: DP and SP paths must
 reproduce the single-device pipeline numerics."""
 
 import jax
@@ -34,13 +34,14 @@ def test_eight_virtual_devices():
     assert len(jax.devices()) == 8
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_dp_detect_matches_single(frames, watermark32, impl):
-    """shard_map DP: each chip runs the literal single-chip program on its
-    local frames — including the fused Pallas kernels."""
-    mesh = make_mesh(data=8)
-    ref = batch_detect(jnp.asarray(frames), jnp.asarray(watermark32), "me")
-    fn = make_dp_detect(mesh, "me", impl=impl)
+@pytest.mark.parametrize("data,p", [(8, 3), (4, 5)])
+def test_dp_detect_matches_single(frames, watermark32, data, p):
+    """shard_map DP: each device runs the literal single-device program on
+    its local frames."""
+    mesh = make_mesh(data=data)
+    ref = batch_detect(jnp.asarray(frames), jnp.asarray(watermark32), "me",
+                       p=p)
+    fn = make_dp_detect(mesh, "me", p=p)
     got = fn(shard_frames(mesh, jnp.asarray(frames)),
              replicate(mesh, jnp.asarray(watermark32)))
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
@@ -129,32 +130,32 @@ def test_hybrid_dp_sp_matches_single(frames, watermark32):
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("mask_type", ["me", "nvf"])
-def test_spatial_pallas_detect_matches_single(frames, watermark32,
-                                              mask_type):
-    """The full fused Pallas path per shard (Gram kernel + detect tail with
-    the shard's global row offset) + psum reproduces both the single-device
-    fused pipeline and the XLA oracle."""
-    mesh = make_mesh(data=1, space=4)
+@pytest.mark.parametrize("space,mask_type,p", [
+    (4, "me", 3), (4, "nvf", 3), (2, "me", 5), (2, "nvf", 7)])
+def test_spatial_detect_mesh_shapes_match_single(frames, watermark32, space,
+                                                 mask_type, p):
+    """Row-sharded detection over 2 and 4 devices and wider windows (halo
+    = p//2 rows for ME, 1 + p//2 for NVF) matches the unsharded pipeline."""
+    mesh = make_mesh(data=1, space=space)
     img = jnp.asarray(frames[0])
     wm = jnp.asarray(watermark32)
-    ref_xla = detect_pipeline(img, wm, mask_type, impl="xla")
-    ref_fused = detect_pipeline(img, wm, mask_type, impl="pallas")
-    fn = make_spatial_detect(mesh, mask_type, impl="pallas")
+    ref = detect_pipeline(img, wm, mask_type, p=p)
+    fn = make_spatial_detect(mesh, mask_type, p=p)
     got = fn(shard_rows(mesh, img), shard_rows(mesh, wm))
-    np.testing.assert_allclose(float(got), float(ref_xla), atol=2e-4)
-    np.testing.assert_allclose(float(got), float(ref_fused), atol=2e-4)
+    np.testing.assert_allclose(float(got), float(ref), atol=2e-4)
 
 
-@pytest.mark.parametrize("mask_type", ["me", "nvf"])
-def test_spatial_pallas_embed_matches_single(frames, watermark32, mask_type):
-    """Fused embed-field kernel per shard + psum/pmax reproduces the
-    single-device embed."""
-    mesh = make_mesh(data=1, space=4)
+@pytest.mark.parametrize("space,mask_type,p", [
+    (4, "me", 3), (4, "nvf", 3), (2, "nvf", 5)])
+def test_spatial_embed_mesh_shapes_match_single(frames, watermark32, space,
+                                                mask_type, p):
+    """Row-sharded embed (psum'd norms, pmax'd ME normalisation) over 2 and
+    4 devices matches the single-device embed."""
+    mesh = make_mesh(data=1, space=space)
     img = jnp.asarray(frames[0])
     wm = jnp.asarray(watermark32)
-    ref_out, ref_s = embed_pipeline(img, img, wm, SF, mask_type, impl="xla")
-    fn = make_spatial_embed(mesh, mask_type, SF, *img.shape, impl="pallas")
+    ref_out, ref_s = embed_pipeline(img, img, wm, SF, mask_type, p=p)
+    fn = make_spatial_embed(mesh, mask_type, SF, *img.shape, p=p)
     img_sh = shard_rows(mesh, img)
     got_out, got_s = fn(img_sh, img_sh, shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got_s), float(ref_s), rtol=1e-4)
@@ -162,36 +163,24 @@ def test_spatial_pallas_embed_matches_single(frames, watermark32, mask_type):
                                atol=2e-3)
 
 
-def test_spatial_pallas_nvf_p5_halo(frames, watermark32):
-    """NVF p=5 on the pallas shard path: halo = 1 + p//2 = 3 rows of true
-    seam data spliced into the kernel padding."""
-    mesh = make_mesh(data=1, space=4)
-    img = jnp.asarray(frames[0])
-    wm = jnp.asarray(watermark32)
-    ref = detect_pipeline(img, wm, "nvf", p=5, impl="xla")
-    fn = make_spatial_detect(mesh, "nvf", p=5, impl="pallas")
-    got = fn(shard_rows(mesh, img), shard_rows(mesh, wm))
-    np.testing.assert_allclose(float(got), float(ref), atol=2e-4)
-
-
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_hybrid_impl_matches_single(frames, watermark32, impl):
-    """2x4 hybrid mesh with both shard implementations: batch-polymorphic
-    shard functions process (B_local, h_local, W) blocks directly."""
+@pytest.mark.parametrize("data,space", [(2, 4), (4, 2)])
+def test_hybrid_impl_matches_single(frames, watermark32, data, space):
+    """2x4 and 4x2 hybrid meshes: batch-polymorphic shard functions process
+    (B_local, h_local, W) blocks directly."""
     from watermarking_gpu_tpu.parallel import (make_hybrid_detect,
                                                make_hybrid_embed,
                                                shard_hybrid, shard_watermark)
-    mesh = make_mesh(data=2, space=4)
+    mesh = make_mesh(data=data, space=space)
     wm = jnp.asarray(watermark32)
-    ref = batch_detect(jnp.asarray(frames), wm, "me", impl="xla")
-    fn = make_hybrid_detect(mesh, "me", impl=impl)
+    ref = batch_detect(jnp.asarray(frames), wm, "me")
+    fn = make_hybrid_detect(mesh, "me")
     got = fn(shard_hybrid(mesh, jnp.asarray(frames)),
              shard_watermark(mesh, wm))
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=2e-4)
 
     ref_out, ref_s = batch_embed(jnp.asarray(frames), jnp.asarray(frames),
-                                 wm, SF, "me", impl="xla")
-    embed_fn = make_hybrid_embed(mesh, "me", SF, 32, 64, impl=impl)
+                                 wm, SF, "me")
+    embed_fn = make_hybrid_embed(mesh, "me", SF, 32, 64)
     sharded = shard_hybrid(mesh, jnp.asarray(frames))
     got_out, got_s = embed_fn(sharded, sharded, shard_watermark(mesh, wm))
     np.testing.assert_allclose(np.asarray(got_s), np.asarray(ref_s),
@@ -224,37 +213,37 @@ def test_halo_larger_than_shard_multi_hops(frames, watermark32):
     mesh = make_mesh(data=1, space=8)   # 4-row shards; NVF p=9 needs halo 5
     img = jnp.asarray(frames[0])
     wm = jnp.asarray(watermark32)
-    ref = detect_pipeline(img, wm, "nvf", p=9, impl="pallas")
-    got = make_spatial_detect(mesh, "nvf", p=9, impl="pallas")(
+    ref = detect_pipeline(img, wm, "nvf", p=9)
+    got = make_spatial_detect(mesh, "nvf", p=9)(
         shard_rows(mesh, img), shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got), float(ref), atol=1e-4)
 
 
 def test_generalized_me_dp_matches_single(frames, watermark32):
     """ME at p=5 (the generalized predictor, beyond the reference) shards
-    data-parallel on the XLA path and matches the unsharded pipeline."""
+    data-parallel and matches the unsharded pipeline."""
     mesh = make_mesh(data=8)
     ref = batch_detect(jnp.asarray(frames), jnp.asarray(watermark32), "me",
-                       p=5, impl="xla")
-    fn = make_dp_detect(mesh, "me", p=5, impl="xla")
+                       p=5)
+    fn = make_dp_detect(mesh, "me", p=5)
     got = fn(shard_frames(mesh, jnp.asarray(frames)),
              replicate(mesh, jnp.asarray(watermark32)))
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
 
 
 def test_generalized_me_spatial_matches_single(frames, watermark32):
-    """Generalized ME (p=5) on the XLA shard path: the 2-row halo exchange
+    """Generalized ME (p=5) on the shard path: the 2-row halo exchange
     feeds the 24-tap predictor; psum'd Gram/correlations match the
     unsharded pipeline."""
     mesh = make_mesh(data=1, space=4)
     img = jnp.asarray(frames[0])
     wm = jnp.asarray(watermark32)
-    ref = detect_pipeline(img, wm, "me", p=5, impl="xla")
+    ref = detect_pipeline(img, wm, "me", p=5)
     got = make_spatial_detect(mesh, "me", p=5)(
         shard_rows(mesh, img), shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got), float(ref), atol=1e-5)
 
-    ref_out, ref_s = embed_pipeline(img, img, wm, SF, "me", p=5, impl="xla")
+    ref_out, ref_s = embed_pipeline(img, img, wm, SF, "me", p=5)
     got_out, got_s = make_spatial_embed(mesh, "me", SF, *img.shape, p=5)(
         shard_rows(mesh, img), shard_rows(mesh, img), shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got_s), float(ref_s), rtol=1e-4)
@@ -262,44 +251,27 @@ def test_generalized_me_spatial_matches_single(frames, watermark32):
                                atol=2e-3)
 
 
-@pytest.mark.parametrize("p", [5, 7])
-def test_generalized_me_spatial_pallas_matches_single(frames, watermark32,
+@pytest.mark.parametrize("p", [7, 9])
+def test_generalized_me_spatial_wide_p_matches_single(frames, watermark32,
                                                       p):
-    """The sharded FUSED wide pipeline (per-shard wide lag-Gram kernel
-    partials + psum, p-scaled fused tails with ICI-spliced halos) matches
-    the single-device fused wide pipeline."""
+    """The sharded lag-partial Gram (per-shard partials + psum, boundary
+    banks psum-broadcast from the edge shards) at p=7 and p=9 on 8-row
+    shards — p=9's 3h boundary banks span more than one shard — matches
+    the single-device pipeline for detect and embed."""
     mesh = make_mesh(data=1, space=4)
     img = jnp.asarray(frames[0])
     wm = jnp.asarray(watermark32)
-    ref = detect_pipeline(img, wm, "me", p=p, impl="pallas")
-    got = make_spatial_detect(mesh, "me", p=p, impl="pallas")(
+    ref = detect_pipeline(img, wm, "me", p=p)
+    got = make_spatial_detect(mesh, "me", p=p)(
         shard_rows(mesh, img), shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got), float(ref), atol=1e-4)
 
-    ref_out, ref_s = embed_pipeline(img, img, wm, SF, "me", p=p,
-                                    impl="pallas")
-    got_out, got_s = make_spatial_embed(mesh, "me", SF, *img.shape, p=p,
-                                        impl="pallas")(
+    ref_out, ref_s = embed_pipeline(img, img, wm, SF, "me", p=p)
+    got_out, got_s = make_spatial_embed(mesh, "me", SF, *img.shape, p=p)(
         shard_rows(mesh, img), shard_rows(mesh, img), shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got_s), float(ref_s), rtol=1e-3)
     np.testing.assert_allclose(np.asarray(got_out), np.asarray(ref_out),
                                atol=2e-3)
-
-
-def test_generalized_me_spatial_pallas_degrades_outside_envelope(
-        frames, watermark32):
-    """ME p=9 on 4-row shards (local rows < 2h = 8) is outside the wide
-    kernels' envelope: the shards degrade to the XLA implementation
-    instead of failing, and still match the unsharded XLA pipeline."""
-    from watermarking_gpu_tpu.parallel.spatial import wide_shard_supported
-    assert not wide_shard_supported(4, 32, 64, 9)
-    mesh = make_mesh(data=1, space=8)
-    img = jnp.asarray(frames[0])
-    wm = jnp.asarray(watermark32)
-    ref = detect_pipeline(img, wm, "me", p=9, impl="xla")
-    got = make_spatial_detect(mesh, "me", p=9, impl="pallas")(
-        shard_rows(mesh, img), shard_rows(mesh, wm))
-    np.testing.assert_allclose(float(got), float(ref), atol=1e-5)
 
 
 @pytest.mark.parametrize("halo", [3, 4, 9, 11])
@@ -332,29 +304,6 @@ def test_exchange_row_halo_multi_hop_values(halo):
         np.testing.assert_array_equal(got[i], want)
 
 
-def test_wide_me_spatial_pallas_2h_shards_match_single(frames, watermark32):
-    """ME p=9 on 8-row shards (local rows == 2h, < 3h): newly inside the
-    fused wide envelope — the wide Gram's boundary banks come from a
-    3h-row multi-hop halo exchange instead of requiring 3h local rows."""
-    from watermarking_gpu_tpu.parallel.spatial import wide_shard_supported
-    assert wide_shard_supported(8, 32, 64, 9)
-    mesh = make_mesh(data=1, space=4)
-    img = jnp.asarray(frames[0])
-    wm = jnp.asarray(watermark32)
-    ref = detect_pipeline(img, wm, "me", p=9, impl="pallas")
-    got = make_spatial_detect(mesh, "me", p=9, impl="pallas")(
-        shard_rows(mesh, img), shard_rows(mesh, wm))
-    np.testing.assert_allclose(float(got), float(ref), atol=1e-4)
-    ref_out, ref_s = embed_pipeline(img, img, wm, SF, "me", p=9,
-                                    impl="pallas")
-    got_out, got_s = make_spatial_embed(mesh, "me", SF, *img.shape, p=9,
-                                        impl="pallas")(
-        shard_rows(mesh, img), shard_rows(mesh, img), shard_rows(mesh, wm))
-    np.testing.assert_allclose(float(got_s), float(ref_s), rtol=1e-3)
-    np.testing.assert_allclose(np.asarray(got_out), np.asarray(ref_out),
-                               atol=2e-3)
-
-
 def _count_eqns(jaxpr) -> int:
     """Total equation count of a (Closed)Jaxpr including sub-jaxprs."""
     if hasattr(jaxpr, "jaxpr"):
@@ -380,23 +329,23 @@ def test_degenerate_shard_wide_analysis_stays_vectorized(frames,
     mesh = make_mesh(data=1, space=8)
     img = jnp.asarray(frames[0])        # 32 rows -> 4-row shards, 2h = 8
     wm = jnp.asarray(watermark32)
-    fn = make_spatial_detect(mesh, "me", p=9, impl="xla")
+    fn = make_spatial_detect(mesh, "me", p=9)
     jaxpr = jax.make_jaxpr(fn)(shard_rows(mesh, img), shard_rows(mesh, wm))
     eqns = _count_eqns(jaxpr)
     # vectorized assembly: O(lags) = 145 lags x ~45 ops each (~9k traced
-    # eqns, measured — the same order as the single-chip p=9 path, ~20 s
+    # eqns, measured — the same order as the single-device p=9 path, ~20 s
     # of XLA compile); the O(pairs) trap is 3321 pairs x 4 boundary
     # strips x ~2 ops >= 26k and minutes of compile
     assert eqns < 13_000, f"shard analysis traced {eqns} eqns (O(pairs)?)"
-    ref = detect_pipeline(img, wm, "me", p=9, impl="xla")
+    ref = detect_pipeline(img, wm, "me", p=9)
     got = fn(shard_rows(mesh, img), shard_rows(mesh, wm))
     np.testing.assert_allclose(float(got), float(ref), atol=1e-5)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
-def test_dp_detect_many_matches_single(frames, watermark32, impl):
+@pytest.mark.parametrize("p", [3, 5])
+def test_dp_detect_many_matches_single(frames, watermark32, p):
     """Candidate-sharded identification: the (N, H, W) bank shards over
-    the data axis; each chip runs the shared-analysis detect_many on its
+    the data axis; each device runs the shared-analysis detect_many on its
     slice, matching the single-device pipeline."""
     from watermarking_gpu_tpu.ops.pipelines import detect_many_pipeline
     from watermarking_gpu_tpu.parallel import make_dp_detect_many
@@ -409,35 +358,34 @@ def test_dp_detect_many_matches_single(frames, watermark32, impl):
     marked, _ = embed_pipeline(jnp.asarray(frames[0]),
                                jnp.asarray(frames[0]),
                                jnp.asarray(watermark32), SF, "me")
-    ref = detect_many_pipeline(marked, bank, "me", impl=impl)
-    fn = make_dp_detect_many(mesh, "me", impl=impl)
+    ref = detect_many_pipeline(marked, bank, "me", p=p)
+    fn = make_dp_detect_many(mesh, "me", p=p)
     got = fn(replicate(mesh, marked), shard_frames(mesh, bank))
     np.testing.assert_allclose(np.asarray(got), np.asarray(ref), atol=1e-4)
     assert int(np.argmax(np.asarray(got))) == 0   # the embedded one wins
 
     # batched form: (B, H, W) x (N, H, W) -> (B, N)
     imgs = jnp.stack([marked, jnp.asarray(frames[1])])
-    ref_b = detect_many_pipeline(imgs, bank, "me", impl=impl)
-    fn_b = make_dp_detect_many(mesh, "me", impl=impl, batched=True)
+    ref_b = detect_many_pipeline(imgs, bank, "me", p=p)
+    fn_b = make_dp_detect_many(mesh, "me", p=p, batched=True)
     got_b = fn_b(replicate(mesh, imgs), shard_frames(mesh, bank))
     np.testing.assert_allclose(np.asarray(got_b), np.asarray(ref_b),
                                atol=1e-4)
 
 
-@pytest.mark.parametrize("impl", ["xla", "pallas"])
+@pytest.mark.parametrize("data,space", [(2, 4), (4, 2)])
 @pytest.mark.parametrize("mask_type", ["me", "nvf"])
 def test_mesh_detect_many_matches_single(frames, watermark32, mask_type,
-                                         impl):
+                                         data, space):
     """Full-mesh identification (rows over space, candidates over data)
-    matches the single-device shared-analysis pipeline, including the
-    generalized window (p=5 sizes the NVF variance window / ME
-    predictor). impl='pallas' chains the fused multi-candidate kernel
-    per shard with the shard's global row offset."""
+    on 2x4 and 4x2 meshes matches the single-device shared-analysis
+    pipeline, including the generalized window (p=5 sizes the NVF variance
+    window / ME predictor)."""
     from watermarking_gpu_tpu.ops.pipelines import detect_many_pipeline
     from watermarking_gpu_tpu.parallel import (make_mesh_detect_many,
                                                shard_hybrid, shard_rows)
 
-    mesh = make_mesh(data=2, space=4)
+    mesh = make_mesh(data=data, space=space)
     rng = np.random.default_rng(7)
     bank = jnp.asarray(
         np.stack([watermark32] + [rng.normal(size=watermark32.shape)
@@ -447,7 +395,7 @@ def test_mesh_detect_many_matches_single(frames, watermark32, mask_type,
                                jnp.asarray(watermark32), SF, mask_type)
     for p in (3, 5):
         ref = detect_many_pipeline(marked, bank, mask_type, p=p)
-        got = make_mesh_detect_many(mesh, mask_type, p=p, impl=impl)(
+        got = make_mesh_detect_many(mesh, mask_type, p=p)(
             shard_rows(mesh, marked), shard_hybrid(mesh, bank))
         np.testing.assert_allclose(np.asarray(got), np.asarray(ref),
                                    atol=1e-4)
@@ -457,8 +405,7 @@ def test_mesh_detect_many_matches_single(frames, watermark32, mask_type,
     # space) x the sharded bank -> (B, N)
     imgs = jnp.stack([marked, jnp.asarray(frames[1])])
     ref_b = detect_many_pipeline(imgs, bank, mask_type)
-    got_b = make_mesh_detect_many(mesh, mask_type, impl=impl,
-                                  batched=True)(
+    got_b = make_mesh_detect_many(mesh, mask_type, batched=True)(
         jax.device_put(imgs, jax.sharding.NamedSharding(
             mesh, jax.sharding.PartitionSpec(None, "space", None))),
         shard_hybrid(mesh, bank))

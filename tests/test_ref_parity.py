@@ -73,9 +73,8 @@ def test_round_trip_within_reference_error_class(sample, mask_type):
 
     marked_fw, strength_fw = embed_pipeline(
         jnp.asarray(gray), jnp.asarray(gray), jnp.asarray(wm), sf,
-        mask_type, impl="xla")
-    corr_fw = float(detect_pipeline(marked_fw, jnp.asarray(wm), mask_type,
-                                    impl="xla"))
+        mask_type)
+    corr_fw = float(detect_pipeline(marked_fw, jnp.asarray(wm), mask_type))
 
     # measured across all samples: strength <=1.3e-3 rel (f32-solve
     # conditioning class), correlation <=9.8e-4
@@ -85,8 +84,7 @@ def test_round_trip_within_reference_error_class(sample, mask_type):
     # interoperability: a reference-embedded mark detects here at the
     # reference's own correlation (measured gap <=9.1e-4)
     corr_cross = float(detect_pipeline(jnp.asarray(marked_ref),
-                                       jnp.asarray(wm), mask_type,
-                                       impl="xla"))
+                                       jnp.asarray(wm), mask_type))
     assert corr_cross == pytest.approx(corr_ref, abs=1.5e-3)
 
     # and the embedded frames themselves agree to sub-quantization level

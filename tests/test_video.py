@@ -175,16 +175,16 @@ def test_embed_then_detect_video(clip):
 
 
 def test_video_generalized_me_p5(clip):
-    """The video path at p=5 with a pallas engine: the generalized ME
-    predictor runs the fused wide pipeline per batch (the reference
-    rejects ME p>3 outright, main.cpp:88-89), the round trip through the
+    """The video path at p=5: the generalized ME predictor runs per batch
+    (the reference rejects ME p>3 outright, main.cpp:88-89), the round
+    trip through the
     raw-yuv sink detects on sampled frames, and the clean clip stays
     near zero."""
     from watermarking_gpu_tpu.models.batched import BatchedWatermark
 
     root, clip_path, wm_path = clip
     out_path = str(root / "marked_p5.yuv")
-    engine = BatchedWatermark(H, W, wm_path, p=5, psnr=30.0, impl="pallas")
+    engine = BatchedWatermark(H, W, wm_path, p=5, psnr=30.0)
     settings = make_settings(root, clip_path, wm_path, p=5,
                              encode_watermark_file_path=out_path)
     frames = embed_video(settings, out=io.StringIO(), engine=engine)
@@ -209,12 +209,12 @@ def test_embed_interval_one_batched(clip, tmp_path):
     settings = make_settings(root, clip_path, wm_path,
                              watermark_interval=1, embed_batch=4,
                              encode_watermark_file_path=out_path)
-    engine = BatchedWatermark(H, W, wm_path, p=3, psnr=30.0, impl="xla")
+    engine = BatchedWatermark(H, W, wm_path, p=3, psnr=30.0)
     frames = embed_video(settings, engine=engine, out=io.StringIO())
     assert frames == N_FRAMES
     assert os.path.getsize(out_path) == N_FRAMES * frame_bytes(W, H)
     # exactly one compiled program: 7 = 4 + 3(padded to 4)
-    fn = engine._fn_cache[("batch_embed_u8", MaskType.ME, "xla")]
+    fn = engine._fn_cache[("batch_embed_u8", MaskType.ME)]
     assert fn._cache_size() == 1
 
     original = np.frombuffer(open(clip_path, "rb").read(), dtype=np.uint8)
@@ -242,24 +242,11 @@ def test_detect_remainder_batch_reuses_compile(clip):
     root, clip_path, wm_path = clip
     settings = make_settings(root, clip_path, wm_path, watermark_interval=1,
                              detect_batch=4)
-    engine = BatchedWatermark(H, W, wm_path, p=3, psnr=30.0, impl="xla")
+    engine = BatchedWatermark(H, W, wm_path, p=3, psnr=30.0)
     n, results = detect_video(settings, engine=engine, out=io.StringIO())
     assert n == N_FRAMES and len(results) == N_FRAMES   # 7 = 4 + 3 padded
-    fn = engine._fn_cache[("batch_detect", MaskType.ME, "xla")]
+    fn = engine._fn_cache[("batch_detect", MaskType.ME)]
     assert fn._cache_size() == 1
-
-
-def test_oversized_video_rejected(fake_ffmpeg):
-    """Streams beyond the kernel bounds fail with the reference-style
-    message, not a raw VMEM compile error (cli guard parity for video)."""
-    import os
-    root, clip_path, wm_path = fake_ffmpeg
-    ffprobe = os.environ["WM_FFPROBE"]
-    text = open(ffprobe).read().replace(f'"width": {W}', '"width": 20000')
-    open(ffprobe, "w").write(text)
-    det = make_settings(root, "input.mp4", wm_path, raw_video_size="")
-    with pytest.raises(RuntimeError, match="dimensions too high"):
-        detect_video(det, out=io.StringIO())
 
 
 def test_encoder_death_fails_cleanly(fake_ffmpeg, tmp_path):
@@ -606,17 +593,3 @@ def test_translate_encode_options():
     # request a nonsense encoder); both fall to the skipped/NOTE path
     codec, opts = _translate_encode_options("-vcodec -an -crf 23")
     assert codec is None and opts == "crf=23"
-
-
-def test_video_dims_guard_scopes_to_fused_path():
-    """The VMEM width bound belongs to the fused p=3 kernels; at p>3 the
-    generalized ME predictor runs on XLA and wide streams must pass."""
-    import pytest
-
-    from watermarking_gpu_tpu.ops.pallas.fused import max_supported_cols
-    from watermarking_gpu_tpu.video.pipeline import _check_video_dims
-
-    too_wide = max_supported_cols("me", 3) + 16
-    with pytest.raises(RuntimeError, match="dimensions too high"):
-        _check_video_dims(too_wide, 64, p=3)
-    _check_video_dims(too_wide, 64, p=5)   # no VMEM strip bound on XLA

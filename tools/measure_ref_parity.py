@@ -77,19 +77,17 @@ def run_case(name: str, mask_type: str) -> dict:
 
     marked_fw, strength_fw = embed_pipeline(
         jnp.asarray(gray), jnp.asarray(gray), jnp.asarray(wm), sf,
-        mask_type, impl="xla")
-    corr_fw = float(detect_pipeline(marked_fw, jnp.asarray(wm), mask_type,
-                                    impl="xla"))
+        mask_type)
+    corr_fw = float(detect_pipeline(marked_fw, jnp.asarray(wm), mask_type))
     strength_fw = float(strength_fw)
 
     # cross: the framework detector on the REFERENCE-embedded frame
     corr_cross = float(detect_pipeline(jnp.asarray(marked_ref),
-                                       jnp.asarray(wm), mask_type,
-                                       impl="xla"))
+                                       jnp.asarray(wm), mask_type))
     # clean-image correlations (the false-positive side of the contract)
     clean_ref = oracle_ref.detect_ref(gray, wm, mask_type)
     clean_fw = float(detect_pipeline(jnp.asarray(gray), jnp.asarray(wm),
-                                     mask_type, impl="xla"))
+                                     mask_type))
 
     out = {
         "sample": name, "mask": mask_type,

@@ -1,6 +1,7 @@
-"""watermarking_gpu_tpu — a TPU-native spread-spectrum watermarking framework.
+"""watermarking_gpu_tpu — a spread-spectrum watermarking framework in JAX.
 
-Brand-new JAX/XLA/Pallas implementation with the capabilities of the OpenCL
+JAX/XLA implementation, with one Pallas kernel through Triton for the GPU,
+of the capabilities of the OpenCL
 reference kar-dim/Watermarking-GPU: NVF and Prediction-Error perceptual masks,
 PSNR-scaled additive embedding, correlation-based detection, image and video
 pipelines, and a settings.ini-driven benchmark CLI.

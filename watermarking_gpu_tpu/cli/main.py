@@ -16,8 +16,8 @@ import sys
 import jax
 import numpy as np
 
-from ..io import (Settings, add_suffix_before_extension, load_image_rgb,
-                  load_settings, save_image_u8)
+from ..io import (SYNTHETIC_PREFIX, Settings, add_suffix_before_extension,
+                  load_image_rgb, load_settings, save_image_u8)
 from ..models import MaskType, Watermark
 from ..ops import rgb_to_gray
 from ..utils.timing import Timer, execution_time
@@ -49,29 +49,22 @@ def test_for_image(settings: Settings) -> int:
     image = jax.block_until_ready(rgb_to_gray(rgb))
     timer.end()
     rows, cols = image.shape
-    print("Time to load and transfer RGB image from disk to HBM: "
+    print("Time to load and transfer RGB image to device memory: "
           f"{timer.elapsed_seconds:.6f}\n")
 
     if rows < MIN_DIM or cols < MIN_DIM:
         print("Image dimensions too low")
         return 1
-    from ..ops.pallas.fused import MAX_ROWS, max_supported_cols
-    # the VMEM width bound applies to the fused Pallas kernels; at p != 3
-    # those run NVF only (ME takes the XLA path), and the wider NVF halos
-    # shrink the bound at p=9
-    mask_for_bound = "me" if settings.p == 3 else "nvf"
-    if rows > MAX_ROWS or cols > max_supported_cols(mask_for_bound,
-                                                    settings.p):
-        print("Image dimensions too high for this device")
-        return 1
 
-    engine = Watermark(rows, cols, settings.watermark, p=settings.p,
+    # an integer watermark path is the seed of a generated watermark
+    watermark = (int(settings.watermark) if settings.watermark.isdigit()
+                 else settings.watermark)
+    engine = Watermark(rows, cols, watermark, p=settings.p,
                        psnr=settings.psnr)
     if settings.p != 3:
         # capability beyond the reference, which rejects ME at p != 3
         # (main.cpp:88-89 "TODO for p>3 we have problems with ME masking
-        # buffers"); on TPU the generalized window runs the fused wide
-        # Pallas pipeline (Watermark._impl_for)
+        # buffers")
         print(f"NOTE: ME at p = {settings.p} uses the generalized "
               f"{settings.p * settings.p - 1}-tap predictor "
               f"(reference supports p = 3 only)\n")
@@ -87,8 +80,8 @@ def test_for_image(settings: Settings) -> int:
         once via a real D2H pull — on a single in-order device queue the
         total window equals the sum of all executions, so the average is the
         true device time per call. Blocking mode reproduces the reference's
-        per-call sync loop (main.cpp:175-181), which on a remote/tunneled
-        device measures host round-trips instead.
+        per-call sync loop (main.cpp:175-181), which adds one host round
+        trip per call.
         """
         if settings.pipelined_timing:
             result = fn()  # ensure compiled/dispatch warm inside window
@@ -146,7 +139,10 @@ def test_for_image(settings: Settings) -> int:
     print(f"Correlation [NVF]: {float(correlation_nvf):.16f}")
     print(f"Correlation [ME]: {float(correlation_me):.16f}")
 
-    if settings.save_watermarked_files_to_disk:
+    if (settings.save_watermarked_files_to_disk
+            and settings.image.startswith(SYNTHETIC_PREFIX)):
+        print("\nNOTE: synthetic input image, nothing saved to disk")
+    elif settings.save_watermarked_files_to_disk:
         print("\nSaving watermarked files to disk...")
         save_image_u8(add_suffix_before_extension(settings.image, "_W_NVF"),
                       np.asarray(watermark_nvf))
@@ -166,9 +162,8 @@ def main(argv: list[str] | None = None) -> int:
         print(f"Could not load {settings_path} file")
         return 1
 
-    if settings.compilation_cache_dir:
-        from ..utils import enable_compilation_cache
-        enable_compilation_cache(settings.compilation_cache_dir)
+    from ..utils import enable_compilation_cache
+    enable_compilation_cache(settings.compilation_cache_dir or None)
 
     device = _select_device(settings.device)
 

@@ -12,7 +12,9 @@ call sites). Sections and keys (``settings.ini:1-25``):
                        encode_options, watermark_detection
 
 Presence of a non-empty ``video`` path selects video mode (``main.cpp:126-129``).
-``opencl_device`` maps to the JAX device index here.
+``opencl_device`` maps to the JAX device index here. Beyond the reference,
+``image = synthetic:WxH:SEED`` makes the input from a seed and an integer
+``watermark`` is the seed of a generated watermark.
 """
 
 from __future__ import annotations
@@ -35,8 +37,9 @@ class Settings:
     # extension: time the benchmark loops with pipelined dispatch + one sync
     # (true device time) instead of the reference's per-call blocking loop
     pipelined_timing: bool = True
-    # extension: persist compiled TPU executables here so every process
-    # after the first starts hot (utils/compile_cache.py); empty = off
+    # extension: persistent compile cache directory, used only when
+    # JAX_COMPILATION_CACHE_DIR is unset; empty = the checkout's .jax_cache/
+    # (utils/compile_cache.py)
     compilation_cache_dir: str = ""
     # [parameters]
     p: int = -1

@@ -2,7 +2,7 @@
 
 from .batched import BatchedWatermark, batch_detect, batch_embed
 from .masks import MaskType
-from .watermark import Watermark, default_impl
+from .watermark import Watermark
 
 __all__ = ["BatchedWatermark", "MaskType", "Watermark", "batch_detect",
-           "batch_embed", "default_impl"]
+           "batch_embed"]

@@ -1,12 +1,12 @@
 """The flagship watermarking engine.
 
-TPU-native re-design of the reference ``Watermark`` class
+JAX re-design of the reference ``Watermark`` class
 (``/root/reference/Watermark_GPU/Watermark.hpp:26-72``): same public contract
 (constructor with dims/watermark-path/p/psnr, ``embed`` == ``makeWatermark``,
 ``detect`` == ``detectWatermark``, ``reinitialize``) but a functional core —
 each (shape, mask type) gets one jit-compiled XLA program, the watermark
-matrix lives in HBM once, and there is no per-call host round trip beyond the
-scalar results.
+matrix lives in device memory once, and there is no per-call host round trip
+beyond the scalar results.
 
 Recompilation discipline: one jit cache entry per image shape, mirroring the
 reference's per-shape pre-allocated state and ``reinitialize`` contract
@@ -26,7 +26,6 @@ from ..io.matfile import generate_watermark, load_watermark
 from ..ops.embed import strength_factor
 from ..ops.pipelines import (detect_many_pipeline, detect_pipeline,
                              embed_pipeline)
-from ..utils.layouts import pinned_jit
 from .masks import MaskType
 
 _VALID_P = (3, 5, 7, 9)
@@ -43,19 +42,8 @@ def as_device_input(x) -> jnp.ndarray:
     return x if x.dtype == jnp.uint8 else x.astype(jnp.float32)
 
 
-def default_impl() -> str:
-    """Pick the compute implementation for the current default backend."""
-    if jax.default_backend() == "tpu":
-        try:  # fused TPU kernels, if built
-            from ..ops.pallas import me_kernel  # noqa: F401
-            return "pallas"
-        except ImportError:
-            return "xla"
-    return "xla"
-
-
 class Watermark:
-    """Embeds and detects additive spread-spectrum watermarks on TPU.
+    """Embeds and detects additive spread-spectrum watermarks.
 
     Parameters mirror the reference constructor (``Watermark.cpp:21-27``):
 
@@ -65,20 +53,13 @@ class Watermark:
     p          : mask window size (3, 5, 7 or 9). The reference rejects
                  p != 3 for the prediction-error mask (``main.cpp:88-89``,
                  "TODO for p>3 we have problems with ME masking buffers");
-                 here ME generalizes to the (p*p-1)-tap predictor. On a
-                 pallas engine the generalized window runs the FUSED wide
-                 pipeline (wide lag-Gram kernel + p-scaled fused tails;
-                 pure XLA outside its geometry envelope — see
-                 ``pipelines._wide_me_fallback``). NVF runs the fused
-                 kernels at every p.
+                 here ME generalizes to the (p*p-1)-tap predictor.
     psnr       : target embedding PSNR in dB (> 0).
-    impl       : 'xla', 'pallas', or None for backend-based auto selection.
     """
 
     def __init__(self, rows: int, cols: int,
                  watermark: "str | os.PathLike | np.ndarray | int",
-                 p: int = 3, psnr: float = 40.0,
-                 impl: str | None = None):
+                 p: int = 3, psnr: float = 40.0):
         if p not in _VALID_P:
             raise ValueError(f"Wrong p parameter: {p}!")
         if psnr <= 0:
@@ -86,39 +67,20 @@ class Watermark:
         self.p = p
         self.psnr = float(psnr)
         self.strength_factor = strength_factor(self.psnr)
-        self.impl = impl if impl is not None else default_impl()
         self._fn_cache: dict = {}
         self.reinitialize(watermark, rows, cols)
 
     # -- state ------------------------------------------------------------
 
     def reinitialize(self, watermark, rows: int, cols: int) -> None:
-        """Re-point the engine at a new image size / watermark matrix."""
+        """Re-point the engine at a new image size / watermark matrix.
+
+        The jitted pipeline functions stay cached: the watermark is an
+        argument to them, and a new shape compiles on first use."""
         self.rows = int(rows)
         self.cols = int(cols)
         self.random_matrix = jax.device_put(
             self._resolve_watermark(watermark).astype(np.float32))
-        # drop cached padded-watermark buffers (matrix changed); the jitted
-        # pipeline functions stay — the watermark is an argument to them
-        self._fn_cache = {key: value for key, value in self._fn_cache.items()
-                          if key[0] != "wm_p"}
-
-    def _padded_watermark(self, mask_type: MaskType):
-        """RAW_PAD-padded watermark, computed once per geometry.
-
-        The fused raw-mode kernels read a padded watermark; it is
-        call-invariant, so the engine pays the pad copy once instead of on
-        every embed/detect dispatch. None when the fused raw path does not
-        apply (XLA impl, or geometry outside raw_mode_ok).
-        """
-        if self._impl_for(mask_type) != "pallas":
-            return None
-        key = ("wm_p", mask_type, self.rows, self.cols)
-        if key not in self._fn_cache:
-            from ..ops.pipelines import precompute_padded_watermark
-            self._fn_cache[key] = precompute_padded_watermark(
-                self.random_matrix, mask_type.value, self.p)
-        return self._fn_cache[key]
 
     def _resolve_watermark(self, watermark) -> np.ndarray:
         if isinstance(watermark, (str, os.PathLike)):
@@ -134,41 +96,23 @@ class Watermark:
 
     # -- compiled pipelines ------------------------------------------------
 
-    def _impl_for(self, mask_type: MaskType) -> str:
-        """Per-mask implementation. The generalized ME mask (p in {5,7,9},
-        the capability the reference TODO'd away at main.cpp:88-89) keeps
-        the engine's impl since the FUSED wide pipeline landed (wide
-        lag-Gram kernel + generalized fused tails): it MEASURES 1.8x
-        faster than the pure-XLA path at 1080p p=5 (994 vs 541 fps; the
-        r2-era mixed pipeline that lost to XLA is now only the small-image
-        fallback inside pipelines._wide_me_fallback). Mesh paths route ME
-        p>3 per shard geometry the same way
-        (parallel.spatial.wide_shard_supported)."""
-        del mask_type
-        return self.impl
-
     def _embed_fn(self, mask_type: MaskType):
-        impl = self._impl_for(mask_type)
-        key = ("embed", mask_type, impl)
+        key = ("embed", mask_type)
         fn = self._fn_cache.get(key)
         if fn is None:
-            # pinned_jit (not jax.jit): row-major boundary layouts, so
-            # lane-misaligned widths don't pay per-dispatch relayout
-            # copies (utils/layouts.py). Strength is a trace-time constant.
-            fn = pinned_jit(partial(
+            # strength is a trace-time constant
+            fn = jax.jit(partial(
                 embed_pipeline, mask_type=mask_type.value, p=self.p,
-                impl=impl, strength_factor_value=self.strength_factor))
+                strength_factor_value=self.strength_factor))
             self._fn_cache[key] = fn
         return fn
 
     def _detect_fn(self, mask_type: MaskType):
-        impl = self._impl_for(mask_type)
-        key = ("detect", mask_type, impl)
+        key = ("detect", mask_type)
         fn = self._fn_cache.get(key)
         if fn is None:
-            fn = pinned_jit(partial(detect_pipeline,
-                                    mask_type=mask_type.value,
-                                    p=self.p, impl=impl))
+            fn = jax.jit(partial(detect_pipeline, mask_type=mask_type.value,
+                                 p=self.p))
             self._fn_cache[key] = fn
         return fn
 
@@ -179,12 +123,8 @@ class Watermark:
         """Pre-compile both mask types (serving cold-start avoidance).
 
         channels=3 additionally warms the RGB-output embed variant.
-        mask_type restricts warmup to one mask: at flip-prone geometries
-        the embed programs cannot warm-start from the AOT side-cache
-        (pinned array outputs do not survive executable serialization on
-        this stack — utils/layouts.py), so each mask's embed pays a live
-        compile (~4-5 s at 4K); a serving restart that only embeds ME
-        halves that by warming ME alone.
+        mask_type restricts warmup to one mask (a service that only embeds
+        ME compiles only ME's programs).
         """
         import numpy as np
 
@@ -209,23 +149,18 @@ class Watermark:
         self._check_dims(image)
         image = as_device_input(image)
         output = image if output is None else as_device_input(output)
-        return self._embed_fn(mask_type)(
-            image, output, self.random_matrix,
-            watermark_padded=self._padded_watermark(mask_type))
+        return self._embed_fn(mask_type)(image, output, self.random_matrix)
 
     def detect(self, image, mask_type: "MaskType | str" = MaskType.ME):
         """Detector correlation of a grayscale image (0-d device array)."""
         mask_type = MaskType.parse(mask_type)
         self._check_dims(image)
-        return self._detect_fn(mask_type)(
-            as_device_input(image), self.random_matrix,
-            watermark_padded=self._padded_watermark(mask_type))
+        return self._detect_fn(mask_type)(as_device_input(image),
+                                          self.random_matrix)
 
-    # per-dispatch HBM budget for detect_many: the XLA formulation's
-    # (B*chunk, H, W) prediction intermediates (u and e_u, f32), or the
-    # padded candidate bank for the fused kernel; keeps large candidate
-    # banks on big frames clear of HBM exhaustion by chunking the
-    # candidate axis
+    # per-dispatch device-memory budget for detect_many: the (B*chunk, H, W)
+    # prediction intermediates (u and e_u, f32); chunking the candidate
+    # axis keeps large banks on big frames clear of memory exhaustion
     _DETECT_MANY_BUDGET_BYTES = 2 * 1024 ** 3
 
     def detect_many(self, image, watermarks,
@@ -239,7 +174,7 @@ class Watermark:
         N full detections (the reference can only loop ``detectWatermark``,
         Watermark.cpp:234-250). Large banks are chunked along the candidate
         axis so the (B*N_chunk, H, W) prediction intermediates stay inside
-        a fixed HBM budget. The engine's own ``random_matrix`` is NOT
+        a fixed device-memory budget. The engine's own ``random_matrix`` is NOT
         implied; pass every candidate explicitly.
         """
         mask_type = MaskType.parse(mask_type)
@@ -255,31 +190,16 @@ class Watermark:
             raise ValueError(
                 f"Candidate watermarks must be (N, {self.rows}, "
                 f"{self.cols}), got shape {watermarks.shape}")
-        impl = self._impl_for(mask_type)
-        key = ("detect_many", mask_type, impl)
+        key = ("detect_many", mask_type)
         fn = self._fn_cache.get(key)
         if fn is None:
-            fn = pinned_jit(partial(detect_many_pipeline,
-                                    mask_type=mask_type.value, p=self.p,
-                                    impl=impl))
+            fn = jax.jit(partial(detect_many_pipeline,
+                                 mask_type=mask_type.value, p=self.p))
             self._fn_cache[key] = fn
         image = as_device_input(image)
         batch = image.shape[0] if image.ndim == 3 else 1
         n = watermarks.shape[0]
-        # the ONE routing predicate the pipeline itself uses — where the
-        # fused kernel will not run, the XLA formulation's (B*chunk, H, W)
-        # u/e_u buffers must size the chunk (a chunk sized for the fused
-        # kernel would be ~2*batch times over the HBM budget)
-        from ..ops.pipelines import fused_detect_many_applies
-        if fused_detect_many_applies(n, self.rows, self.cols,
-                                     mask_type.value, self.p, impl):
-            # fused multi-candidate kernel: no (B*N, H, W) u/e_u buffers —
-            # the dominant HBM cost is the padded candidate bank itself
-            # (~1.3x for the halo pad), so candidate chunks can be ~2B/batch
-            # larger than the XLA formulation allows
-            per_candidate = int(1.3 * self.rows * self.cols * 4)
-        else:
-            per_candidate = 2 * batch * self.rows * self.cols * 4  # u + e_u
+        per_candidate = 2 * batch * self.rows * self.cols * 4  # u + e_u
         chunk = max(1, self._DETECT_MANY_BUDGET_BYTES // per_candidate)
         if chunk >= n:
             return fn(image, watermarks)

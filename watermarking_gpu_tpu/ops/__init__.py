@@ -1,7 +1,8 @@
-"""TPU-native compute ops for spread-spectrum watermarking.
+"""Compute ops for spread-spectrum watermarking.
 
-Pure-XLA (jnp) implementations double as correctness oracles; the fused
-Pallas TPU kernels live under ``watermarking_gpu_tpu.ops.pallas``.
+Plain jnp/lax implementations left to XLA; they double as correctness
+oracles for the one hand-written kernel, the p=3 Gram through Triton
+(``ops/gram_triton.py``).
 """
 
 from .color import rgb_to_gray

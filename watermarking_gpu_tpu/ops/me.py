@@ -17,19 +17,18 @@ Reference behavior:
   Here singularity surfaces as non-finite solve output, reduced to a ``valid``
   scalar per image that downstream code applies with ``jnp.where``.
 
-TPU-first notes: the Rx/rx accumulation is expressed as an ``(k, N) @ (N, k)``
-contraction so it lands on the MXU, and everything accumulates in f32
+Numerics: the Rx/rx accumulation runs in f32 at ``Precision.HIGHEST``
 (strictly more precise than the reference's fp16 staging, see BASELINE.md).
-The fused single-pass Pallas version lives in ``ops/pallas/me_kernel.py``.
+On the GPU the p=3 Gram runs as one Pallas kernel through Triton
+(``ops/gram_triton.py``); this XLA formulation is the oracle it is tested
+against and the path on every other backend.
 
 Predictor window: the reference hard-codes p=3 (8 taps) and rejects anything
 else ("TODO for p>3 we have problems with ME masking buffers",
 ``main.cpp:88-89``). Here every function takes ``p`` and generalizes to the
-(p*p-1)-tap predictor — the MXU contraction and the batched solve are
-shape-polymorphic, so p in {5, 7, 9} costs nothing structurally. This XLA
-path is the correctness oracle at every p, the mesh-shard formulation, and
-the fallback outside the fused wide pipeline's envelope (engines route ME
-p>3 to the wide Pallas lag-Gram kernel, ops/pallas/me_gram_wide.py).
+(p*p-1)-tap predictor — the contraction and the batched solve are
+shape-polymorphic, so p in {5, 7, 9} costs nothing structurally. Wider
+windows assemble the Gram from lag partials (``_gram_lags_vectorized``).
 
 All functions are batch-polymorphic over leading dims: images (..., H, W),
 coefficients (..., k), Rx (..., k, k), rx (..., k) with k = p*p-1.
@@ -37,15 +36,19 @@ coefficients (..., k), Rx (..., k, k), rx (..., k) with k = p*p-1.
 
 from __future__ import annotations
 
+from functools import lru_cache
+
 import jax
 import jax.numpy as jnp
+import numpy as np
 
+from .gram_triton import gram_p3_triton
 from .neighbors import (neighbor_offsets, neighbor_stack,
                         neighbor_stack_from_padded, pad_edge)
 
-# The normal-equation accumulation must not be demoted to bf16 inputs (the
-# default matmul precision does that on both XLA:CPU and the TPU MXU); full
-# f32 costs nothing at this 8xN shape and keeps the 1e-4 parity budget.
+# The normal-equation accumulation must not be demoted to reduced-precision
+# inputs (the default matmul precision on the GPU is TF32); full f32 costs
+# nothing at this 8xN shape and keeps the 1e-4 parity budget.
 _HIGHEST = jax.lax.Precision.HIGHEST
 
 
@@ -54,10 +57,10 @@ def gram_terms_from_padded(padded: jnp.ndarray, image: jnp.ndarray,
                            ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Rx/rx partial sums over `image`'s pixels, reading neighbors from a
     halo-extended array (local edge padding here; the spatially-sharded
-    path passes its ICI-exchanged halo instead and psums the results).
+    path passes its exchanged halo instead and psums the results).
 
-    p=3 contracts the materialized 8-neighbor stack on the MXU (the
-    bit-stable oracle path the goldens pin). Wider windows dispatch to the
+    p=3 contracts the materialized 8-neighbor stack (the bit-stable oracle
+    path the goldens pin). Wider windows dispatch to the
     lag-decomposed assembly (``_gram_lags``) — the (k, N) stack (24x the
     image at 1080p/k=24) is never materialized, and the ~350 sibling
     product-reductions of the view-based formulation (which XLA splits
@@ -86,11 +89,10 @@ def gram_terms_from_padded(padded: jnp.ndarray, image: jnp.ndarray,
             # assembly — O(lags) ops instead of O(pairs) strip reductions
             return _gram_lags_vectorized(padded, image.shape[:-2], rows,
                                          cols, p)
-        # No production caller reaches this since r4 (me_normal_equations
-        # pads 3h whenever the image is wide enough, and the mesh path
-        # runs the sharded vectorized assembly at every shard height);
-        # kept as the safe formulation for direct callers with thin halos
-        # and as tools/bench_wide_gram.py's A/B baseline.
+        # No production caller reaches this (me_normal_equations pads 3h
+        # whenever the image is wide enough, and the mesh path runs the
+        # sharded vectorized assembly at every shard height); kept as the
+        # safe formulation for direct callers with thin halos.
         return _gram_lags(padded, image.shape[:-2], rows, cols, p)
 
     # tiny images: direct per-pair product-reductions (the lag cores below
@@ -117,15 +119,13 @@ def _gram_lags(padded: jnp.ndarray, batch_shape, rows: int, cols: int,
 
     The direct formulation needs k(k+1)/2 + k ≈ 350 (p=5) full-image
     product-reductions, which XLA splits into dozens of bandwidth-bound
-    fusions inside the full pipeline (~2.3 ms/frame measured). Every pair
+    fusions inside the full pipeline. Every pair
     (i, j) is really a *window sum* of one lag product map
     M_d = P ⊙ shift_d(P), d = offset_j - offset_i, so the distinct heavy
     reductions collapse to the ~(2p-1)^2/2 canonical lags — each pair's
     window then assembles as the lag's CORE sum (the intersection of all
     windows sharing the lag, one full reduction) plus up to four thin
-    boundary-strip sums (≤2h rows × W or H × ≤2h cols). This is the same
-    inclusion-exclusion design as the p=3 Pallas gram kernel
-    (ops/pallas/me_kernel.py), expressed at the XLA level.
+    boundary-strip sums (≤2h rows × W or H × ≤2h cols).
     """
     half = p // 2
     offs = list(neighbor_offsets(p)) + [(0, 0)]    # center last: rx column
@@ -183,6 +183,131 @@ def _gram_lags(padded: jnp.ndarray, batch_shape, rows: int, cols: int,
     return rx_matrix, rx_vector
 
 
+@lru_cache(maxsize=None)
+def lag_plan(p: int):
+    """Static per-p assembly plan of the lag-decomposed Gram.
+
+    Every pair sum of the (k+1)x(k+1) Gram of [k neighbors; center] is a
+    window sum of one lag product plane Q_d[y] = P[y] * P[y+d]; orienting
+    pairs canonically leaves ((4h+1)^2+1)/2 distinct lags (h = p//2).
+
+    Returns (lags, pair_lag, pair_ar, pair_ai, pair_index):
+    lags      -- canonical (dr, dc) lag list, dr >= 0 (dc >= 0 when dr == 0)
+    pair_lag  -- per pair, index into lags
+    pair_ar   -- per pair, window row offset ar in [-h, h] (the reoriented
+                 pair's first offset)
+    pair_ai   -- per pair, window column index ac + h in [0, 2h]
+    pair_index -- (k+1, k+1) int32 grid mapping Gram positions to pair ids
+                 (the unused center-center cell points at pair 0; consumers
+                 only read [:k, :k] and [:k, k])
+    """
+    h = p // 2
+    offsets = list(neighbor_offsets(p)) + [(0, 0)]   # center last
+    k = len(offsets) - 1
+    lags: list[tuple[int, int]] = []
+    pair_lag, pair_ar, pair_ai, pairs = [], [], [], []
+    for a in range(k + 1):
+        for b in range(a, k + 1):
+            if a == b == k:
+                continue                              # center-center unused
+            first, second = offsets[a], offsets[b]
+            lag = (second[0] - first[0], second[1] - first[1])
+            if lag < (0, 0):    # reorient: Q_{-d} is a shifted Q_d
+                lag = (-lag[0], -lag[1])
+                first = second
+            if lag not in lags:
+                lags.append(lag)
+            pairs.append((a, b))
+            pair_lag.append(lags.index(lag))
+            pair_ar.append(first[0])
+            pair_ai.append(first[1] + h)
+    pair_index = np.zeros((k + 1, k + 1), np.int32)
+    for i, (a, b) in enumerate(pairs):
+        pair_index[a, b] = i
+        pair_index[b, a] = i
+    assert len(lags) == ((4 * h + 1) ** 2 + 1) // 2
+    return (tuple(lags), np.asarray(pair_lag, np.int32),
+            np.asarray(pair_ar, np.int32), np.asarray(pair_ai, np.int32),
+            pair_index)
+
+
+def _edge_windows(x: jnp.ndarray, h: int) -> jnp.ndarray:
+    """All 2h+1 lane windows of (..., W + 2h) partials in O(1) ops.
+
+    Window ai sums lanes [ai, ai + W); it equals the full lane sum minus
+    the excluded ai left lanes and 2h - ai right lanes — tiny prefix sums
+    over the <= 2h edge lanes instead of one reduction per (row, ai)."""
+    wspan = x.shape[-1]
+    full = jnp.sum(x, axis=-1)
+    zero = jnp.zeros(x.shape[:-1] + (1,), x.dtype)
+    left = jnp.concatenate(
+        [zero, jnp.cumsum(x[..., :2 * h], axis=-1)], axis=-1)
+    right = jnp.concatenate(
+        [zero, jnp.cumsum(x[..., :wspan - 2 * h - 1:-1], axis=-1)], axis=-1)
+    # index ai: exclude left[ai] and right[2h - ai]
+    return full[..., None] - left - right[..., ::-1]
+
+
+def assemble_lag_gram(partials: jnp.ndarray, row_of, rows: int, cols: int,
+                      p: int) -> jnp.ndarray:
+    """(B, L, W+2h) lag lane partials (``lag_partials``) + a boundary-row
+    provider -> (B, k+1, k+1) Gram, in O(1) ops per p.
+
+    ``row_of(j)`` returns the clamp-extended image row j, lanes = image
+    columns [-3h, W+3h). Each pair's lane window differs from the full
+    partial sum by <= 2h edge lanes (``_edge_windows``); the boundary-row
+    corrections for pairs whose window is row-shifted by ar != 0 reduce to
+    cumulative sums over the 2h-row low/high blocks, gathered per pair.
+    """
+    h = p // 2
+    lags, pair_lag, pair_ar, pair_ai, pair_index = lag_plan(p)
+    n_lags = len(lags)
+    na = 2 * h + 1
+
+    # base windows: rows [0, H) of each lag, all 2h+1 column windows
+    win_base = _edge_windows(partials[:, :n_lags], h)     # (B, L, 2h+1)
+    base_vals = win_base.reshape(win_base.shape[0], -1)[
+        :, pair_lag * na + pair_ai]                        # (B, P)
+
+    # boundary-row banks: rows [-h, 3h) (low) and [H-h, H+3h) (high) of the
+    # clamp-extended image, lanes cols [-3h, W+3h)
+    low = jnp.stack([row_of(j) for j in range(-h, 3 * h)], axis=1)
+    high = jnp.stack([row_of(rows + j) for j in range(-h, 3 * h)], axis=1)
+
+    def q_windows(bank, lag_r, lag_c):
+        # Q_d rows j in [-h, h) (block index 0..2h): top row j times row
+        # j + dr shifted dc lanes; then all column windows
+        top = bank[:, 0:2 * h, 2 * h: 2 * h + cols + 2 * h]
+        bottom = bank[:, lag_r:lag_r + 2 * h,
+                      2 * h + lag_c: 2 * h + lag_c + cols + 2 * h]
+        return _edge_windows(top * bottom, h)              # (B, 2h, 2h+1)
+
+    q_low = jnp.stack([q_windows(low, lr, lc) for lr, lc in lags], axis=1)
+    q_high = jnp.stack([q_windows(high, lr, lc) for lr, lc in lags], axis=1)
+    # cumulative over the block rows, zero-prepended: cum[..., m, :] is the
+    # sum of the first m block rows (block row m holds image row m - h for
+    # the low block, H + m - h for the high block)
+    zero = jnp.zeros(q_low.shape[:2] + (1, na), q_low.dtype)
+    cum_low = jnp.concatenate([zero, jnp.cumsum(q_low, axis=2)], axis=2)
+    cum_high = jnp.concatenate([zero, jnp.cumsum(q_high, axis=2)], axis=2)
+    # a pair's window rows [ar, H+ar) correct the base rows [0, H) by
+    #   ar > 0: + rows [H, H+ar)   - rows [0, ar)
+    #   ar < 0: + rows [ar, 0)     - rows [H+ar, H)
+    # both collapse to sign(ar) * (D[h + max(ar,0)] - D[h + min(ar,0)])
+    # on D = cumHigh - cumLow
+    diff = (cum_high - cum_low).reshape(q_low.shape[0], -1)
+    per_lag = (2 * h + 1) * na
+    hi_m = h + np.maximum(pair_ar, 0)
+    lo_m = h + np.minimum(pair_ar, 0)
+    sign = np.sign(pair_ar).astype(np.float32)
+    idx_hi = pair_lag * per_lag + hi_m * na + pair_ai
+    idx_lo = pair_lag * per_lag + lo_m * na + pair_ai
+    corrections = sign * (diff[:, idx_hi] - diff[:, idx_lo])
+
+    values = base_vals + corrections                       # (B, P)
+    return values[:, pair_index]                           # (B, k+1, k+1)
+
+
 def _gram_lags_vectorized(padded: jnp.ndarray, batch_shape, rows: int,
                           cols: int, p: int
                           ) -> tuple[jnp.ndarray, jnp.ndarray]:
@@ -193,10 +318,10 @@ def _gram_lags_vectorized(padded: jnp.ndarray, batch_shape, rows: int,
     the r2 VERDICT's compile-time complaint) this computes, per canonical
     lag d, one (rows)-reduction lane-partial vector
     ``V_d[v] = Σ_y P[y, v−h]·P[y+dr, v−h+dc]`` over shifted views of a
-    3h-padded image, then reuses the wide Pallas Gram's O(1)-op assembly
-    (``me_gram_wide._assemble_wide``: edge prefix sums for the per-pair
-    lane windows, cumulated low/high boundary-row blocks gathered per
-    pair). Total op count is O(lags), so p=9 compiles in seconds.
+    3h-padded image, then assembles every pair in O(1) ops
+    (``assemble_lag_gram``: edge prefix sums for the per-pair lane
+    windows, cumulated low/high boundary-row blocks gathered per pair).
+    Total op count is O(lags), so p=9 compiles in seconds.
 
     Requires halo ≥ 3h (row reach 2h for the lags plus the boundary banks'
     [−h, 3h) rows; ``me_normal_equations`` pads accordingly). The spatial
@@ -205,13 +330,14 @@ def _gram_lags_vectorized(padded: jnp.ndarray, batch_shape, rows: int,
     + psum, boundary banks psum-broadcast from the edge shards) at every
     shard height — multi-hop halos cover shards thinner than the reach.
     """
-    from .pallas.me_gram_wide import _assemble_wide, wide_padded_row_provider
-
     h = p // 2
     flat = padded.reshape((-1,) + padded.shape[-2:])
     partials = lag_partials(flat, rows, cols, p, row0=3 * h, col0=2 * h)
-    row_of = wide_padded_row_provider(flat, 3 * h, cols, h)
-    gram = _assemble_wide(partials, row_of, rows, cols, p)
+
+    def row_of(j: int) -> jnp.ndarray:   # clamp-extended row j, cols ±3h
+        return flat[:, 3 * h + j, :]
+
+    gram = assemble_lag_gram(partials, row_of, rows, cols, p)
     k = p * p - 1
     return (gram[:, :k, :k].reshape(batch_shape + (k, k)),
             gram[:, :k, k].reshape(batch_shape + (k,)))
@@ -226,16 +352,13 @@ def lag_partials(ext: jnp.ndarray, rows: int, cols: int, p: int,
     d = (dr, dc), dr ∈ [0, 2h], dc ∈ [−2h, 2h]; lane v covers image
     columns [−h, W+h). ``ext`` holds image row 0 at ``row0`` (needs 2h
     more rows below row0+rows for the lag reach) and column −h at
-    ``col0`` (needs 2h columns both sides). These are exactly the
-    partials the wide Pallas Gram kernel exports, so
-    ``me_gram_wide._assemble_wide`` consumes them; the spatial mesh path
-    builds them per shard and psums (the sum over global rows decomposes
-    across shards once each shard sees a 2h true bottom halo).
+    ``col0`` (needs 2h columns both sides). ``assemble_lag_gram``
+    consumes them; the spatial mesh path builds them per shard and psums
+    (the sum over global rows decomposes across shards once each shard
+    sees a 2h true bottom halo).
     """
-    from .pallas.me_gram_wide import _plan
-
     h = p // 2
-    lags = _plan(p)[0]
+    lags = lag_plan(p)[0]
     parts = [
         jnp.sum(ext[:, row0: row0 + rows, col0: col0 + cols + 2 * h]
                 * ext[:, row0 + dr: row0 + dr + rows,
@@ -244,13 +367,29 @@ def lag_partials(ext: jnp.ndarray, rows: int, cols: int, p: int,
     return jnp.stack(parts, axis=1)
 
 
+def _gram_p3_xla(image: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+    return gram_terms_from_padded(pad_edge(image, 1), image, 3)
+
+
+def _gram_p3_kernel(image: jnp.ndarray) -> tuple[jnp.ndarray, jnp.ndarray]:
+    gram = gram_p3_triton(image)
+    return gram[..., :8, :8], gram[..., :8, 8]
+
+
 def me_normal_equations(image: jnp.ndarray,
                         p: int = 3) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Accumulate Rx (..., k, k) and rx (..., k) over all pixels.
 
-    p>3 pads with a 3h halo so the lag partials and boundary banks of the
-    vectorized assembly read true clamp-extended rows (p=3 and the
-    h-halo spatial path keep their formulations bit-stable)."""
+    At p=3 a program compiled for the GPU runs the Triton Gram kernel
+    (``gram_triton.py``; the stack einsum moves about nine frames of bytes
+    per Gram), chosen per lowering platform so the same function still
+    compiles the XLA formulation for the CPU. p>3 pads with a 3h halo so
+    the lag partials and boundary banks of the vectorized assembly read
+    true clamp-extended rows (p=3 and the h-halo spatial path keep their
+    formulations bit-stable)."""
+    if p == 3:
+        return jax.lax.platform_dependent(image, cuda=_gram_p3_kernel,
+                                          default=_gram_p3_xla)
     half = p // 2
     rows, cols = image.shape[-2:]
     wide = p != 3 and rows >= 6 * half and cols >= 6 * half
@@ -281,8 +420,8 @@ def solve_coefficients_spd(rx_matrix: jnp.ndarray,
                            ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Unrolled batched 8x8 Cholesky solve for the SPD Gram system.
 
-    LAPACK-style LU (jnp.linalg.solve) costs ~0.6 ms per batched call on
-    TPU — scalar-heavy pivoting. Rx is a Gram matrix, so an unrolled
+    LAPACK-style LU (jnp.linalg.solve) is scalar-heavy pivoting. Rx is a
+    Gram matrix, so an unrolled
     Cholesky in plain (B,)-vector arithmetic compiles to a handful of fused
     elementwise ops. Singularity surfaces exactly like the LU path: a zero
     or negative pivot produces NaN/Inf, reduced to the per-image ``valid``
@@ -327,7 +466,7 @@ def solve_coefficients_spd_vec(rx_matrix: jnp.ndarray,
 
     The n=8 unrolled scalar Cholesky (``solve_coefficients_spd``) compiles
     to a handful of fused ops, but at n=24 its ~n^3/6 tiny (B,)-vector ops
-    become dispatch-bound on TPU (~the whole p=5 round trip). This variant
+    become dispatch-bound. This variant
     does n stages of whole-column tensor ops instead — each stage one
     (B, n, n) x (B, n) matvec plus elementwise updates, with a row mask in
     place of triangular indexing — so op count scales with n, not n^3.
@@ -424,18 +563,17 @@ def solve_coefficients_spd_blocked(rx_matrix: jnp.ndarray,
     """Blocked batched Cholesky solve for the wide (k = 24/48/80) systems.
 
     ``solve_coefficients_spd_vec`` runs 3n sequentially-dependent
-    ``fori_loop`` stages of tiny (B, n)-tensor ops — a loop iteration on
-    TPU cannot fuse with its neighbors, so at n = 48/80 the solve is
+    ``fori_loop`` stages of tiny (B, n)-tensor ops — a loop iteration
+    cannot fuse with its neighbors, so at n = 48/80 the solve is
     bounded by per-stage overhead, not arithmetic. This variant is the
     classic right-looking blocked factorization: n/8 unrolled 8x8 diagonal
     factors (`_chol8_factor`, the same scalar recurrence the p=3 path
-    uses), an 8-column unrolled panel triangular solve, and MXU matmul
+    uses), an 8-column unrolled panel triangular solve, and matmul
     trailing updates — everything a flat fused op graph (no loop
     machinery), ~40x fewer HLO ops than fully unrolling n = 80 (which
     cost ~21 s of compile; this traces in well under a second).
     Singularity surfaces as NaN/Inf -> ``valid`` exactly like the other
-    solvers. A/B against the fori_loop variant on chip before switching
-    production routing (tools/bench_wide_components.py).
+    solvers.
     """
     n = rx_matrix.shape[-1]
     if n % block:
@@ -514,15 +652,13 @@ def predict_from_padded(padded: jnp.ndarray, image: jnp.ndarray,
                         coefficients: jnp.ndarray,
                         p: int = 3) -> jnp.ndarray:
     """Linear prediction reading neighbors from a halo-extended array
-    (local edge padding, or the spatial path's ICI-exchanged halo).
+    (local edge padding, or the spatial path's exchanged halo).
 
-    p=3 contracts the 8-neighbor stack on the MXU (kept bit-stable — the
+    p=3 contracts the 8-neighbor stack (kept bit-stable — the
     goldens pin this path). Wider windows accumulate shifted slices of the
     padded array instead — XLA fuses the k scaled adds into one stencil
     pass, never materializing the (p*p-1, N) neighbor stack that dominates
     the stacked einsum's cost at 1080p (k=24 stacks are 24x the image).
-    (A grouped-conv formulation was measured SLOWER: per-image rank-1
-    groups cannot use the MXU.)
     """
     rows, cols = image.shape[-2:]
     if p == 3:

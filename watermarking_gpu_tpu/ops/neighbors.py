@@ -2,7 +2,7 @@
 
 The reference reads pixels through an OpenCL image2d sampler configured with
 ``CLK_ADDRESS_CLAMP_TO_EDGE`` (``/root/reference/Watermark_GPU/kernels/nvf.hpp:9``,
-``me_p3.hpp:45``, ``scaled_neighbors_p3.hpp:14``). The TPU-native equivalent is
+``me_p3.hpp:45``, ``scaled_neighbors_p3.hpp:14``). The JAX equivalent is
 ``jnp.pad(..., mode="edge")`` once per pass plus static slices, which XLA fuses
 into the consuming computation.
 

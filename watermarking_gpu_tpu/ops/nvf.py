@@ -7,9 +7,9 @@ for each pixel, over a p x p clamp-to-edge window compute
     variance = sumSq / p^2 - mean^2
     mask     = variance / (1 + variance)
 
-This module is the pure-XLA implementation (oracle + fallback), batch-
-polymorphic over leading dims. The fused Pallas kernel lives in
-``watermarking_gpu_tpu.ops.pallas.nvf_kernel``.
+This module is the pure-XLA implementation, batch-polymorphic over leading
+dims; XLA fuses the pad, the shifted window slices and the sums into one
+loop fusion, so it needs no hand-written kernel.
 """
 
 from __future__ import annotations

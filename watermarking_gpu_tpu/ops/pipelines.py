@@ -12,91 +12,46 @@ optionally with a trailing channel axis, per-image solves/strengths/
 correlations. Mask type is a static (trace-time) argument; the solve-failure
 soft path is a traced per-image ``valid`` flag applied with ``jnp.where`` so
 the functions stay fully jittable with no data-dependent Python control flow.
-
-Implementation selection: ``impl='xla'`` uses the pure-jnp ops (oracle),
-``impl='pallas'`` uses the fused TPU strip kernels from ``ops.pallas``.
 """
 
 from __future__ import annotations
 
 from typing import Literal
 
-import jax
 import jax.numpy as jnp
 
 from .correlation import correlation
 from .embed import embed_watermark
 from .me import (me_mask_from_error, me_normal_equations, prediction_error,
-                 solve_coefficients, solve_coefficients_spd_blocked,
-                 solve_coefficients_spd_vec)
+                 solve_coefficients, solve_coefficients_spd_vec)
 from .nvf import nvf_mask
 
 MaskTypeName = Literal["nvf", "me"]
-ImplName = Literal["xla", "pallas"]
 
 
 def _to_f32(x: jnp.ndarray) -> jnp.ndarray:
     """Device-side cast. Integer inputs (video lumas) cross the host->device
-    link 4x narrower as uint8 and widen to f32 here, inside jit — the TPU
-    answer to the reference's pinned staging buffer (main.cpp:273-275)."""
+    link 4x narrower as uint8 and widen to f32 here, inside jit — the
+    device-side counterpart of the reference's pinned staging buffer
+    (main.cpp:273-275)."""
     return x if x.dtype == jnp.float32 else x.astype(jnp.float32)
 
 
-def _analysis(image: jnp.ndarray, impl: ImplName, p: int = 3):
+def _analysis(image: jnp.ndarray, p: int = 3):
     """Rx/rx accumulation + solve. Returns (coefficients, valid).
 
-    The XLA oracle and ``detect_many_pipeline`` reach this; the fused
-    pallas embed/detect pipelines run their gram + SPD solve inline
-    (they share the padded image / the wide kernel's geometry). ``p`` is
-    the predictor window (3 in the reference; wider windows use the
-    lag-decomposed gram).
-
-    impl='pallas' at p>3 runs the wide-window Pallas lag-Gram kernel
-    (one pass over the image for all ((4h+1)^2+1)/2 canonical lags) when
-    the geometry supports it; small images fall back to the XLA lag
-    formulation.
+    ``p`` is the predictor window (3 in the reference; wider windows use the
+    lag-decomposed Gram).
     """
-    if p == 3:
-        rx_matrix, rx_vector = me_normal_equations(image, p)
-        return solve_coefficients(rx_matrix, rx_vector)
-    if impl == "pallas":
-        from .pallas.me_gram_wide import (me_normal_equations_wide,
-                                          wide_gram_supported)
-        rows, cols = image.shape[-2:]
-        if wide_gram_supported(rows, cols, p):
-            # the wide kernel takes one leading batch axis; flatten/restore
-            lead = image.shape[:-2]
-            rx_matrix, rx_vector = me_normal_equations_wide(
-                image.reshape((-1, rows, cols)) if lead else image, p)
-            if lead:
-                k = p * p - 1
-                rx_matrix = rx_matrix.reshape(lead + (k, k))
-                rx_vector = rx_vector.reshape(lead + (k,))
-            return solve_coefficients_spd_blocked(rx_matrix, rx_vector)
     rx_matrix, rx_vector = me_normal_equations(image, p)
+    if p == 3:
+        return solve_coefficients(rx_matrix, rx_vector)
     # Generalized windows: the Gram is SPD; both batched LU (scalar
     # pivoting) and the n=8-style unrolled scalar Cholesky are
-    # dispatch-bound at n=24 (~1 ms/frame, half the p=5 round trip). The
-    # masked vectorized Cholesky does n column-stage tensor ops instead.
-    # p=3 keeps LU for the bit-stable oracle the goldens pin; this XLA
-    # fallback keeps the fori_loop Cholesky for the same oracle-stability
-    # reason, while the pallas production branches above use the blocked
-    # factorization (0.10 ms/frame faster at n=80, r5 on-chip A/B in
-    # tools/bench_wide_components.py).
+    # dispatch-bound at n=24. The masked vectorized Cholesky does n
+    # column-stage tensor ops instead. p=3 keeps LU for the bit-stable
+    # oracle the goldens pin.
     return solve_coefficients_spd_vec(rx_matrix, rx_vector)
-
-
-def _prediction_error(image: jnp.ndarray, coefficients: jnp.ndarray,
-                      impl: ImplName, p: int) -> jnp.ndarray:
-    """Predictor routing for the non-fused branches (the wide-ME
-    fallback and ``detect_many_pipeline``, which reaches this at every p
-    including 3): impl='pallas' runs the (p*p-1)-tap strip kernel; the
-    XLA oracle stays pure jnp. The fused embed/detect pipelines never
-    reach this — they return earlier with everything fused."""
-    if impl == "pallas":
-        from .pallas.predict_kernel import prediction_error_pallas
-        return prediction_error_pallas(image, coefficients, p=p)
-    return prediction_error(image, coefficients, p)
 
 
 def _gate(value: jnp.ndarray, valid: jnp.ndarray,
@@ -107,223 +62,19 @@ def _gate(value: jnp.ndarray, valid: jnp.ndarray,
                      fallback)
 
 
-def _wide_me_fallback_geometry(rows: int, cols: int, mask_type: str,
-                               p: int) -> bool:
-    """Geometry form of ``_wide_me_fallback`` (shape-only callers)."""
-    if mask_type != "me" or p == 3:
-        return False
-    from .pallas.fused import max_supported_cols
-    from .pallas.me_gram_wide import wide_gram_supported
-    return (not wide_gram_supported(rows, cols, p)
-            or cols > max_supported_cols(mask_type, p))
-
-
-def _wide_me_fallback(image: jnp.ndarray, mask_type: str, p: int) -> bool:
-    """impl='pallas' with the generalized ME window (p>3) runs the FUSED
-    wide pipeline (wide lag-Gram kernel + wide-ring fused tails) whenever
-    the geometry supports it: the wide Gram's lag windows need a few
-    halo-widths of real image, and the tail kernels' p-scaled VMEM budget
-    bounds the width. Outside that envelope the pipelines run the pure-XLA
-    formulation — measured FASTER end to end than the r2-era mixed
-    pipeline (XLA gram + Pallas predict kernel; 1080p p=5: 526 vs 438
-    fps), which survives only as the predict routing inside
-    ``detect_many_pipeline``'s fallback."""
-    rows, cols = image.shape[-2:]
-    return _wide_me_fallback_geometry(rows, cols, mask_type, p)
-
-
-def fused_detect_many_applies(n: int, rows: int, cols: int, mask_type: str,
-                              p: int, impl: str) -> bool:
-    """Will ``detect_many_pipeline`` run the FUSED multi-candidate kernel
-    at this geometry? THE single source of truth for the routing — the
-    engine's HBM chunk sizing (``Watermark.detect_many``) must agree with
-    the pipeline's actual branch or chunks sized for the fused kernel's
-    small per-candidate estimate oversubscribe HBM ~2*batch-fold when the
-    XLA formulation really runs."""
-    if impl != "pallas" or _wide_me_fallback_geometry(rows, cols, mask_type,
-                                                      p):
-        return False
-    from .pallas.fused import detect_many_supported
-    return detect_many_supported(n, rows, cols, mask_type, p)
-
-
-def precompute_padded_watermark(watermark: jnp.ndarray, mask_type: str,
-                                p: int = 3) -> jnp.ndarray | None:
-    """RAW_PAD-padded watermark for the fused raw-mode kernels, or None
-    when raw mode does not apply to this geometry.
-
-    The padded watermark is call-invariant, so callers that dispatch many
-    embeds/detects (engines, benchmarks) should pay this edge-pad copy once
-    and pass the result as ``watermark_padded`` — at 4K with small batches
-    the in-jit re-pad otherwise costs ~6% of the round trip.
-
-    Computed on the HOST (numpy edge-pad) and uploaded with an explicitly
-    row-major ``Format``: the padded width is never 128-lane aligned
-    (cols + 2*RAW_PAD), so XLA's auto choice would tag it transposed and
-    every consumer step would relayout-copy it per dispatch (measured
-    66 us/frame at 4K-3872). The pre-r5 on-device producer force-pinned a
-    jitted pad for the same tag — but pinned array-OUTPUT programs cannot
-    warm-start from the AOT side-cache (reloaded executables abandon
-    pinned output layouts, utils/layouts.py), so the two producers alone
-    cost ~2.1 s of live compile on every process start at 4K-nd;
-    ``device_put`` with a target Format needs no compile at all.
-    """
-    import numpy as np
-
-    from jax.experimental.layout import Format, Layout
-    from jax.sharding import SingleDeviceSharding
-
-    from ..utils.layouts import _pin_device
-    from .pallas.common import RAW_PAD, raw_mode_ok
-    from .pallas.fused import pipeline_geometry
-
-    rows, cols = watermark.shape[-2:]
-    _, strip, rows_padded = pipeline_geometry(rows, cols, mask_type, p)
-    if not raw_mode_ok(rows, strip, rows_padded):
-        return None
-    wm = np.asarray(watermark, dtype=np.float32)
-    widths = [(0, 0)] * (wm.ndim - 2)
-    widths += [(RAW_PAD, RAW_PAD + rows_padded - rows), (RAW_PAD, RAW_PAD)]
-    padded = np.pad(wm, widths, mode="edge")
-    fmt = Format(Layout(major_to_minor=tuple(range(padded.ndim))),
-                 SingleDeviceSharding(_pin_device()))
-    return jax.device_put(padded, fmt)
-
-
-def _fused_analysis(img3, pred_p: int):
-    """Pallas Gram + SPD solve -> (coefficients, valid) for a (B, H, W)
-    stack. pred_p=3 runs the 13-lag kernel (raw mode when the geometry
-    allows); wider windows the wide lag kernel (its own geometry)."""
-    from .me import solve_coefficients_spd
-    from .pallas.common import RAW_PAD, pad_image, raw_mode_ok
-    from .pallas.fused import pipeline_geometry
-    from .pallas.me_kernel import me_gram_padded, me_gram_raw
-
-    if pred_p != 3:
-        from .pallas.me_gram_wide import me_gram_wide
-        gram = me_gram_wide(img3, pred_p)
-        k = pred_p * pred_p - 1
-        return solve_coefficients_spd_blocked(gram[:, :k, :k],
-                                              gram[:, :k, k])
-    batch, rows, cols = img3.shape
-    pad, strip, rows_padded = pipeline_geometry(rows, cols, "me", 3)
-    if raw_mode_ok(rows, strip, rows_padded):
-        gram = me_gram_raw(img3, rows, cols, RAW_PAD, strip, rows_padded)
-    else:
-        gram = me_gram_padded(pad_image(img3, pad, rows_padded), rows,
-                              cols, pad, strip, rows_padded)
-    return solve_coefficients_spd(gram[:, :8, :8], gram[:, :8, 8])
-
-
-def _fused_front(img3, watermark, watermark_padded, mask_type, p,
-                 need_gram):
-    """Shared front end of the fused pipelines (successor of _pad_once).
-
-    Picks raw vs padded kernel inputs (``raw_mode_ok``: raw mode stages
-    halos in VMEM scratch, skipping the bandwidth-bound XLA edge-pad),
-    prepares the padded watermark (engines pass it pre-computed — it is
-    call-invariant), and runs the Gram + SPD solve when the predictor is
-    needed. Returns (use_raw, img_p-or-None, wm_p, coefficients, valid,
-    (rows, cols, pad_used, strip, rows_padded)).
-    """
-    from .me import solve_coefficients_spd
-    from .pallas.common import RAW_PAD, pad_image, raw_mode_ok
-    from .pallas.fused import pipeline_geometry
-    from .pallas.me_kernel import me_gram_padded, me_gram_raw
-
-    batch, rows, cols = img3.shape
-    pad, strip, rows_padded = pipeline_geometry(rows, cols, mask_type, p)
-    use_raw = raw_mode_ok(rows, strip, rows_padded)
-    pad_used = RAW_PAD if use_raw else pad
-    if use_raw and watermark_padded is not None:
-        wm_p = watermark_padded
-    else:
-        wm_p = pad_image(watermark, pad_used, rows_padded)
-    img_p = None if use_raw else pad_image(img3, pad, rows_padded)
-    if need_gram and mask_type == "me" and p != 3:
-        # generalized window: the wide lag-Gram kernel runs its own
-        # (pad >= 3h) geometry straight off the raw image
-        from .pallas.me_gram_wide import me_gram_wide
-        gram = me_gram_wide(img3, p)
-        k = p * p - 1
-        coefficients, valid = solve_coefficients_spd_blocked(
-            gram[:, :k, :k], gram[:, :k, k])
-    elif need_gram:
-        gram = (me_gram_raw(img3, rows, cols, RAW_PAD, strip, rows_padded)
-                if use_raw else
-                me_gram_padded(img_p, rows, cols, pad, strip, rows_padded))
-        coefficients, valid = solve_coefficients_spd(gram[:, :8, :8],
-                                                     gram[:, :8, 8])
-    else:
-        coefficients = jnp.zeros((batch, 8), jnp.float32)
-        valid = jnp.ones((batch,), dtype=bool)
-    return (use_raw, img_p, wm_p, coefficients, valid,
-            (rows, cols, pad_used, strip, rows_padded))
-
-
-def _embed_pipeline_fused(image, output, watermark, strength_factor_value,
-                          mask_type, p, watermark_padded=None):
-    """Pallas fast path: gram+solve, one fused field pass, one AXPY pass.
-
-    The ME mask's 1/max normalization cancels in the embedded pixels (see
-    ops/embed.py), so the fused field is unnormalized and the max only
-    feeds the reported strength.
-    """
-    import math
-
-    from .pallas.fused import fused_embed_field_padded, fused_embed_field_raw
-
-    squeeze = image.ndim == 2
-    img3 = image[None] if squeeze else image
-    use_raw, img_p, wm_p, coefficients, valid, geo = _fused_front(
-        img3, watermark, watermark_padded, mask_type, p,
-        need_gram=mask_type == "me")
-    rows, cols, pad, strip, rows_padded = geo
-    if use_raw:
-        u_raw, sum_u2, max_e = fused_embed_field_raw(
-            img3, wm_p, coefficients, rows, cols, pad, strip, rows_padded,
-            mask_type, p)
-    else:
-        u_raw, sum_u2, max_e = fused_embed_field_padded(
-            img_p, wm_p, coefficients, rows, cols, pad, strip, rows_padded,
-            mask_type, p)
-    if squeeze:
-        u_raw, sum_u2, max_e = u_raw[0], sum_u2[0], max_e[0]
-        valid = valid[0]
-    n = rows * cols
-    scale = strength_factor_value * math.sqrt(n) / jnp.sqrt(sum_u2)  # (...,)
-    strength = scale * max_e if mask_type == "me" else scale
-    addend = u_raw * scale[..., None, None]
-    if output.ndim == image.ndim + 1:
-        addend = addend[..., None]
-    watermarked = jnp.clip(output + addend, 0.0, 255.0)
-    watermarked = _gate(watermarked, valid, output)
-    return watermarked, jnp.where(valid, strength, 0.0)
-
-
 def embed_pipeline(image: jnp.ndarray, output: jnp.ndarray,
                    watermark: jnp.ndarray, strength_factor_value: float,
-                   mask_type: MaskTypeName, p: int = 3,
-                   impl: ImplName = "xla",
-                   watermark_padded: jnp.ndarray | None = None
+                   mask_type: MaskTypeName, p: int = 3
                    ) -> tuple[jnp.ndarray, jnp.ndarray]:
     """Embed into `output` the watermark computed from grayscale `image`.
 
     Returns (watermarked, strengths). On an unsolvable ME system the output
     is returned unmodified and strength is 0 (Watermark.cpp:164-165).
-    ``watermark_padded`` optionally provides the RAW_PAD-padded watermark
-    (engine-cached; see Watermark._padded_watermark).
     """
     image, output, watermark = map(_to_f32, (image, output, watermark))
-    if impl == "pallas" and not _wide_me_fallback(image, mask_type, p):
-        return _embed_pipeline_fused(image, output, watermark,
-                                     strength_factor_value, mask_type, p,
-                                     watermark_padded)
-    if impl == "pallas":   # wide-ME fallback: pure XLA measures fastest
-        impl = "xla"
     if mask_type == "me":
-        coefficients, valid = _analysis(image, impl, p)
-        error = _prediction_error(image, coefficients, impl, p)
+        coefficients, valid = _analysis(image, p)
+        error = prediction_error(image, coefficients, p)
         mask = me_mask_from_error(error)
     else:
         mask = nvf_mask(image, p=p)
@@ -336,10 +87,7 @@ def embed_pipeline(image: jnp.ndarray, output: jnp.ndarray,
 
 
 def detect_pipeline(image: jnp.ndarray, watermark: jnp.ndarray,
-                    mask_type: MaskTypeName, p: int = 3,
-                    impl: ImplName = "xla",
-                    watermark_padded: jnp.ndarray | None = None
-                    ) -> jnp.ndarray:
+                    mask_type: MaskTypeName, p: int = 3) -> jnp.ndarray:
     """Detector correlations for (possibly watermarked) grayscale images.
 
     NVF detection still runs the prediction-error analysis for the
@@ -347,49 +95,24 @@ def detect_pipeline(image: jnp.ndarray, watermark: jnp.ndarray,
     (Watermark.cpp:238-241). Returns 0.0 where the system is unsolvable.
     """
     image, watermark = map(_to_f32, (image, watermark))
-    if impl == "pallas" and not _wide_me_fallback(image, mask_type, p):
-        from .pallas.fused import (fused_detect_partials_raw,
-                                   fused_detect_tail_padded)
-
-        squeeze = image.ndim == 2
-        img3 = image[None] if squeeze else image
-        use_raw, img_p, wm_p, coefficients, valid, geo = _fused_front(
-            img3, watermark, watermark_padded, mask_type, p, need_gram=True)
-        rows, cols, pad, strip, rows_padded = geo
-        if use_raw:
-            dot, norm_u, norm_z = fused_detect_partials_raw(
-                img3, wm_p, coefficients, rows, cols, pad, strip,
-                rows_padded, mask_type, p)
-            corr = dot / jnp.sqrt(norm_u * norm_z)
-        else:
-            corr = fused_detect_tail_padded(
-                img_p, wm_p, coefficients, rows, cols, pad, strip,
-                rows_padded, mask_type, p)
-        if squeeze:
-            corr, valid = corr[0], valid[0]
-        return jnp.where(valid, corr, 0.0)
-
-    if impl == "pallas":   # wide-ME fallback: pure XLA measures fastest
-        impl = "xla"
     # Predictor window: p for the ME mask's generalized predictor; the NVF
     # detector keeps the reference's fixed 3x3 predictor (p sizes only the
     # NVF variance window, Watermark.cpp:238-241).
     pred_p = p if mask_type == "me" else 3
-    coefficients, valid = _analysis(image, impl, pred_p)
-    e_z = _prediction_error(image, coefficients, impl, pred_p)
+    coefficients, valid = _analysis(image, pred_p)
+    e_z = prediction_error(image, coefficients, pred_p)
     if mask_type == "me":
         mask = me_mask_from_error(e_z)
     else:
         mask = nvf_mask(image, p=p)
     u = mask * watermark
-    e_u = _prediction_error(u, coefficients, impl, pred_p)
+    e_u = prediction_error(u, coefficients, pred_p)
     corr = correlation(e_u, e_z)
     return jnp.where(valid, corr, 0.0)
 
 
 def detect_many_pipeline(image: jnp.ndarray, watermarks: jnp.ndarray,
-                         mask_type: MaskTypeName, p: int = 3,
-                         impl: ImplName = "xla") -> jnp.ndarray:
+                         mask_type: MaskTypeName, p: int = 3) -> jnp.ndarray:
     """Watermark identification: which of N candidate matrices does an
     image carry? (..., H, W) images + (N, H, W) watermarks -> (..., N)
     correlations (batch-polymorphic like every pipeline).
@@ -401,41 +124,13 @@ def detect_many_pipeline(image: jnp.ndarray, watermarks: jnp.ndarray,
     N full detections, re-running the whole analysis per call
     (``Watermark::detectWatermark``, Watermark.cpp:234-250). Returns zeros
     where the system is unsolvable (the usual soft-fail contract).
-
-    ``impl='pallas'`` runs the FUSED multi-candidate kernel: one strip
-    pass per nc-candidate chunk computes e_z and the mask once and
-    accumulates per-candidate (dot, ||e_u||^2) lane partials — the image
-    is read n/nc times instead of n, and the (B*N, H, W) u / e_u
-    intermediates of the XLA formulation are never materialized
-    (``fused.fused_detect_many_partials``). Tiny generalized-ME frames
-    fall back to the XLA formulation below.
     """
     image, watermarks = map(_to_f32, (image, watermarks))
     n, rows, cols = watermarks.shape
     batch_shape = image.shape[:-2]
     pred_p = p if mask_type == "me" else 3
-    use_fused = fused_detect_many_applies(n, rows, cols, mask_type, p, impl)
-    if use_fused:
-        from .pallas.fused import fused_detect_many_partials
-        img3 = image.reshape((-1, rows, cols))
-        coefficients, valid = _fused_analysis(img3, pred_p)
-        dot, norm_u, norm_z = fused_detect_many_partials(
-            img3, watermarks, coefficients, mask_type, p)
-        corr = dot / jnp.sqrt(norm_u * norm_z[:, None])
-        corr = jnp.where(valid[:, None], corr, 0.0)
-        return corr.reshape(batch_shape + (n,))
-    if impl == "pallas":
-        # non-fused branch (chunked kernel unsupported at this geometry,
-        # or tiny wide-ME frames): the strip predict kernel's p-scaled
-        # VMEM budget must fit the width, else run the whole shared-
-        # analysis formulation in XLA — the same downgrade the embed/
-        # detect pipelines make, instead of letting
-        # prediction_error_pallas raise (e.g. ME p=9 at 1080p widths)
-        from .pallas.predict_kernel import predict_supported
-        if not predict_supported(cols, pred_p):
-            impl = "xla"
-    coefficients, valid = _analysis(image, impl, pred_p)
-    e_z = _prediction_error(image, coefficients, impl, pred_p)
+    coefficients, valid = _analysis(image, pred_p)
+    e_z = prediction_error(image, coefficients, pred_p)
     if mask_type == "me":
         mask = me_mask_from_error(e_z)
     else:
@@ -444,12 +139,7 @@ def detect_many_pipeline(image: jnp.ndarray, watermarks: jnp.ndarray,
     coeffs_n = jnp.broadcast_to(
         coefficients[..., None, :],
         batch_shape + (n, coefficients.shape[-1]))
-    # flatten leading dims for the predictor (the strip kernel takes one
-    # leading batch axis), then restore
-    e_u = _prediction_error(
-        u.reshape((-1, rows, cols)),
-        coeffs_n.reshape((-1, coeffs_n.shape[-1])), impl, pred_p
-    ).reshape(batch_shape + (n, rows, cols))
+    e_u = prediction_error(u, coeffs_n, pred_p)
     dot = jnp.sum(e_u * e_z[..., None, :, :], axis=(-2, -1))
     norm_u = jnp.sqrt(jnp.sum(e_u * e_u, axis=(-2, -1)))
     norm_z = jnp.sqrt(jnp.sum(e_z * e_z, axis=(-2, -1)))

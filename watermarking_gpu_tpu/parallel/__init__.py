@@ -1,5 +1,5 @@
-"""Multi-chip parallelism: device meshes, frame-parallel (DP) and
-spatially-sharded (SP) pipelines over XLA collectives on ICI."""
+"""Multi-card parallelism: device meshes, frame-parallel (DP) and
+spatially-sharded (SP) pipelines over XLA collectives."""
 
 from .data_parallel import (make_dp_detect, make_dp_detect_many,
                             make_dp_embed, replicate, shard_frames)

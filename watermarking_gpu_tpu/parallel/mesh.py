@@ -1,13 +1,16 @@
 """Device-mesh helpers.
 
-The reference is single-device (SURVEY.md §2.4 — no distributed layer). The
-TPU framework scales two ways instead, both over a ``jax.sharding.Mesh``:
+The reference is single-device (SURVEY.md §2.4 — no distributed layer). This
+framework scales two ways instead, both over a ``jax.sharding.Mesh``:
 
 * ``data`` axis — frame-parallel (DP): independent frames sharded across
-  chips, no collectives (``parallel.data_parallel``).
+  cards, no collectives (``parallel.data_parallel``).
 * ``space`` axis — spatial parallelism (SP): one image's rows sharded across
-  chips, halo exchange via ``lax.ppermute`` over ICI, scalar reductions via
-  ``lax.psum`` (``parallel.spatial``).
+  cards, halo exchange via ``lax.ppermute`` over NVLink, scalar reductions
+  via ``lax.psum`` (``parallel.spatial``).
+
+The cards of one host are joined all to all, so the mesh shape follows the
+algorithm alone.
 """
 
 from __future__ import annotations

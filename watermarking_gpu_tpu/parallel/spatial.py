@@ -1,29 +1,18 @@
-"""Spatially-sharded (SP) embed/detect across a TPU mesh.
+"""Spatially-sharded (SP) embed/detect across a device mesh.
 
 An image's rows shard across the ``space`` mesh axis. Stencils need their
 neighbors' edge rows, so each step exchanges a row halo with mesh neighbors
-via ``lax.ppermute`` over ICI (the Pallas-guide ring pattern, expressed at the
-XLA level); global clamp-to-edge semantics are preserved by replicating the
-true image edges at the outermost shards. Global scalars (Rx/rx normal
-equations, norms, correlations, mask maxima) reduce with ``lax.psum`` /
-``lax.pmax``.
-
-Both implementations are available per shard:
-
-* ``impl="xla"`` — the jnp oracle ops on each shard.
-* ``impl="pallas"`` — the fused strip kernels (Gram, embed field, detect
-  tail) run on each shard's rows: the ICI-exchanged halo rows are spliced
-  into the kernels' padding region so seams see true neighbors, and the
-  detect tail receives the shard's global row offset so its clamp-ring fix
-  only fires at the true image border. Per-shard partial reductions then
-  psum/pmax exactly like the XLA path.
+via ``lax.ppermute`` (over NVLink between GPUs); global clamp-to-edge
+semantics are preserved by replicating the true image edges at the outermost
+shards. Global scalars (Rx/rx normal equations, norms, correlations, mask
+maxima) reduce with ``lax.psum`` / ``lax.pmax``.
 
 Every shard function is batch-polymorphic over leading dims — the hybrid
 DP x SP path calls the same functions on (B_local, h_local, W) blocks.
 
-This is the TPU-native scaling axis the reference lacks entirely (SURVEY.md
-§2.4: single-device, single-queue); it makes arbitrarily large frames behave
-like per-chip-sized ones.
+The reference has no such scaling axis (SURVEY.md §2.4: single-device,
+single-queue); this lets frames larger than one card's memory behave like
+per-card-sized ones.
 """
 
 from __future__ import annotations
@@ -40,9 +29,8 @@ try:  # jax >= 0.6 exposes shard_map at the top level
 except AttributeError:  # pragma: no cover - older jax
     from jax.experimental.shard_map import shard_map
 
-from ..ops.me import (gram_terms_from_padded, predict_from_padded,
-                      solve_coefficients, solve_coefficients_spd,
-                      solve_coefficients_spd_blocked,
+from ..ops.me import (assemble_lag_gram, gram_terms_from_padded,
+                      lag_partials, predict_from_padded, solve_coefficients,
                       solve_coefficients_spd_vec)
 from ..ops.pipelines import _gate
 from .mesh import SPACE_AXIS
@@ -60,7 +48,7 @@ def exchange_row_halo(x: jnp.ndarray, halo: int,
     A halo deeper than the local shard (degenerate shard heights, e.g. a
     wide-window Gram's 2h lag reach on tiny shards) gathers whole neighbor
     blocks over multiple ppermute hops — every shard geometry works; deep
-    halos just cost more ICI rounds.
+    halos just cost more exchange rounds.
     """
     n = lax.axis_size(axis)
     idx = lax.axis_index(axis)
@@ -100,26 +88,10 @@ def exchange_row_halo(x: jnp.ndarray, halo: int,
 
 
 def _extend(x: jnp.ndarray, halo: int) -> jnp.ndarray:
-    """Row halo via ICI exchange + column halo via local edge padding."""
+    """Row halo via mesh exchange + column halo via local edge padding."""
     with_rows = exchange_row_halo(x, halo)
     widths = [(0, 0)] * (x.ndim - 2) + [(0, 0), (halo, halo)]
     return jnp.pad(with_rows, widths, mode="edge")
-
-
-def _splice_pad(ext: jnp.ndarray, halo: int, rows: int, pad: int,
-                rows_padded: int) -> jnp.ndarray:
-    """Grow a halo-extended shard to the fused kernels' padded layout.
-
-    ``ext`` is (..., rows + 2*halo, W) with true seam rows; the result is
-    (..., rows_padded + 2*pad, W + 2*pad) with the shard's row 0 at index
-    ``pad`` — the exchanged rows land exactly where ``pad_image`` would have
-    put edge replicas, so the kernels read true neighbors at interior seams.
-    The extra replicated rows beyond the halo are never read (or are
-    masked/cancelled, see me_kernel.py's assembly notes).
-    """
-    widths = [(0, 0)] * (ext.ndim - 2)
-    widths += [(pad - halo, pad - halo + rows_padded - rows), (pad, pad)]
-    return jnp.pad(ext, widths, mode="edge")
 
 
 def _nvf_local(img: jnp.ndarray, p: int) -> jnp.ndarray:
@@ -136,34 +108,11 @@ def _nvf_local(img: jnp.ndarray, p: int) -> jnp.ndarray:
     return variance / (1.0 + variance)
 
 
-def _flatten_batch(x: jnp.ndarray) -> jnp.ndarray:
-    """(..., H, W) -> (B, H, W) for the pallas kernels' leading grid dim."""
-    return x.reshape((-1,) + x.shape[-2:])
-
-
-def _gram_psum(img_p3: jnp.ndarray, rows: int, cols: int, pad: int,
-               strip: int, rows_padded: int):
-    """Per-shard fused Gram partials + psum -> replicated SPD solve.
-
-    The halo rows exchanged over ICI sit in the kernel's padding region so
-    shard seams see true neighbors; the kernel's own bottom-row masking
-    keeps each center counted exactly once, and the lag-decomposition
-    assembly cancels any contribution of the fake +/-2 padding rows by
-    value (see me_kernel.py). The psum'd 9x9 Gram equals the unsharded one.
-    """
-    from ..ops.pallas.me_kernel import me_gram_padded
-
-    gram = me_gram_padded(img_p3, rows, cols, pad, strip, rows_padded)
-    gram = lax.psum(gram, SPACE_AXIS)
-    return solve_coefficients_spd(gram[:, :8, :8], gram[:, :8, 8])
-
-
-def _gram_wide_sharded(img: jnp.ndarray, p: int, impl: str = "xla",
-                       ext2h: jnp.ndarray | None = None):
+def _gram_wide_sharded(img: jnp.ndarray, p: int):
     """Global wide-window Rx/rx via per-shard lag partials + psum and the
     vectorized assembly (returns the REPLICATED global Gram terms).
 
-    The single-chip formulation (``ops/me.py::_gram_lags_vectorized``)
+    The single-device formulation (``ops/me.py::_gram_lags_vectorized``)
     decomposes cleanly across row shards: each lag's lane-partial vector
     is a sum over image rows, so per-shard partials over local rows (with
     a 2h-row true bottom halo for the lag reach) psum to the global ones,
@@ -172,46 +121,18 @@ def _gram_wide_sharded(img: jnp.ndarray, p: int, impl: str = "xla",
     Unlike the per-pair boundary-strip formulation this keeps the mesh
     path's op count O(lags) — at p=9 the pair-window assembly was ~13k
     sibling ops per shard and minutes of XLA compile.
-
-    ``impl="pallas"`` computes each shard's partials with the wide
-    lag-Gram kernel instead (one pass over the shard's rows for all
-    canonical lags, ``me_gram_wide.wide_gram_partials_padded``): the
-    exchanged halo rows are spliced into the kernel's padding region, the
-    kernel's own bottom-row masking keeps every center counted exactly
-    once, and the same psum + boundary-bank assembly follows.
-
-    ``ext2h`` optionally provides the 2h-row-exchanged shard (callers
-    that already exchanged a >= 2h halo for their tail kernels slice it
-    down and pass it in, saving a second ppermute round per step).
     """
-    from ..ops.me import lag_partials
-    from ..ops.pallas.me_gram_wide import _assemble_wide
-
     h = p // 2
     lead = img.shape[:-2]
     h_local, cols = img.shape[-2:]
     n = lax.axis_size(SPACE_AXIS)
     idx = lax.axis_index(SPACE_AXIS)
     rows = n * h_local
-    if ext2h is None:
-        ext2h = exchange_row_halo(img, 2 * h)
-
-    if impl == "pallas":
-        from ..ops.pallas.me_gram_wide import (wide_gram_geometry,
-                                               wide_gram_partials_padded,
-                                               wide_pad)
-        pad = wide_pad(p)
-        strip, rows_padded = wide_gram_geometry(h_local, cols, p)
-        img_p = _flatten_batch(_splice_pad(ext2h, 2 * h, h_local, pad,
-                                           rows_padded))
-        partials = wide_gram_partials_padded(img_p, h_local, cols, pad,
-                                             strip, rows_padded, p)
-    else:
-        widths = [(0, 0)] * (ext2h.ndim - 2) + [(0, 0), (3 * h, 3 * h)]
-        ext = jnp.pad(ext2h, widths, mode="edge")
-        flat = ext.reshape((-1,) + ext.shape[-2:])
-        partials = lag_partials(flat, h_local, cols, p, row0=2 * h,
-                                col0=2 * h)
+    ext2h = exchange_row_halo(img, 2 * h)
+    widths = [(0, 0)] * (ext2h.ndim - 2) + [(0, 0), (3 * h, 3 * h)]
+    ext = jnp.pad(ext2h, widths, mode="edge")
+    flat = ext.reshape((-1,) + ext.shape[-2:])
+    partials = lag_partials(flat, h_local, cols, p, row0=2 * h, col0=2 * h)
     partials = lax.psum(partials, SPACE_AXIS)
 
     # boundary banks: global rows [-h, 3h) and [rows-h, rows+3h), clamped;
@@ -247,58 +168,16 @@ def _gram_wide_sharded(img: jnp.ndarray, p: int, impl: str = "xla",
             return low[:, j + h]
         return high[:, j - (rows - h)]      # high bank rows [rows-h, ...)
 
-    gram = _assemble_wide(partials, row_of, rows, cols, p)
+    gram = assemble_lag_gram(partials, row_of, rows, cols, p)
     k = p * p - 1
     return (gram[:, :k, :k].reshape(lead + (k, k)),
             gram[:, :k, k].reshape(lead + (k,)))
 
 
-def wide_shard_supported(local_rows: int, global_rows: int, cols: int,
-                         p: int) -> bool:
-    """Can the fused wide pipeline (wide lag-Gram kernel + p-scaled fused
-    tails) run per shard at this geometry?
-
-    Mirrors the single-chip envelope (``pipelines._wide_me_fallback``):
-    ``wide_gram_supported`` at the GLOBAL geometry (the assembly's lag
-    windows and the Gram kernel's min-strip VMEM fit), plus 2h local rows
-    so the tail kernels' ``stencil_reach`` halo exchanges in one ppermute
-    hop, and the tail kernels' width budget. Outside the envelope the
-    shard functions degrade to the XLA shard implementation (same
-    numerics; its wide Gram runs the sharded vectorized lag assembly at
-    every shard height, multi-hop halos included, so no geometry hits the
-    O(pairs) compile trap).
-    """
-    from ..ops.pallas.fused import max_supported_cols
-    from ..ops.pallas.me_gram_wide import wide_gram_supported
-
-    h = p // 2
-    return (wide_gram_supported(global_rows, cols, p)
-            and local_rows >= 2 * h
-            and cols <= max_supported_cols("me", p))
-
-
-def _wide_gram_psum_pallas(img: jnp.ndarray, p: int,
-                           ext2h: jnp.ndarray | None = None):
-    """(coefficients (B, k), valid (B,)) for the generalized window via
-    per-shard wide-kernel lag partials + psum (B = flattened batch).
-    ``ext2h``: optional pre-exchanged 2h-halo shard (see
-    ``_gram_wide_sharded``)."""
-    rx_matrix, rx_vector = _gram_wide_sharded(img, p, impl="pallas",
-                                              ext2h=ext2h)
-    k = p * p - 1
-    # blocked solve: same routing as the single-chip pallas pipelines
-    # (pipelines._fused_front) — 0.10 ms/frame faster than the fori_loop
-    # Cholesky at n=80 (r5 on-chip A/B, tools/bench_wide_components.py)
-    return solve_coefficients_spd_blocked(rx_matrix.reshape((-1, k, k)),
-                                          rx_vector.reshape((-1, k)))
-
-
 def _analysis_local(img: jnp.ndarray, p: int = 3):
     """Global Rx/rx from per-shard partials + psum, then a replicated solve.
 
-    XLA-oracle path only — the pallas shard functions run _gram_psum with
-    the pipeline-shared geometry instead. ``p`` is the predictor window.
-    Generalized windows (p>3) run the sharded vectorized lag assembly
+    ``p`` is the predictor window. Generalized windows (p>3) run the sharded vectorized lag assembly
     (``_gram_wide_sharded``) when the shard geometry allows; the fallback
     (and p=3) exchanges a p//2-row halo and psums per-shard pair-window
     Gram terms (each shard's neighbor stack is the unsharded stack
@@ -306,14 +185,14 @@ def _analysis_local(img: jnp.ndarray, p: int = 3):
     """
     h = p // 2
     rows_global = lax.axis_size(SPACE_AXIS) * img.shape[-2]
-    # shard gate: 6h GLOBAL rows/cols for the lag windows (the single-chip
+    # shard gate: 6h GLOBAL rows/cols for the lag windows (the single-device
     # vectorized gate, gram_terms_from_padded). No local-rows condition:
     # the multi-hop halo exchange and the exchanged-halo boundary banks
     # cover arbitrarily small shards, so no shard geometry can fall back
     # to the O(pairs) per-pair assembly — whose p=9 form is ~13k sibling
     # ops and minutes of XLA compile (the r3 VERDICT's remaining trap).
     # The residual fallback (tiny GLOBAL images) takes the tiny-image
-    # direct branch, same as a single chip.
+    # direct branch, same as a single device.
     if p != 3 and rows_global >= 6 * h and img.shape[-1] >= 6 * h:
         rx_matrix, rx_vector = _gram_wide_sharded(img, p)
     else:
@@ -322,8 +201,7 @@ def _analysis_local(img: jnp.ndarray, p: int = 3):
         rx_matrix = lax.psum(rx_matrix, SPACE_AXIS)
         rx_vector = lax.psum(rx_vector, SPACE_AXIS)
     # p=3 keeps the LU oracle path; wider SPD systems use the vectorized
-    # Cholesky (both LU and the scalar-unrolled Cholesky are
-    # dispatch-bound at n>=24 — see pipelines._analysis)
+    # Cholesky (see pipelines._analysis)
     solver = (solve_coefficients if p == 3
               else solve_coefficients_spd_vec)
     return solver(rx_matrix, rx_vector)
@@ -352,72 +230,8 @@ def _analysis_and_mask(img: jnp.ndarray, mask_type: str, p: int):
     return pred_p, coefficients, valid, e_z, mask
 
 
-def _detect_shard_pallas(img: jnp.ndarray, watermark: jnp.ndarray,
-                         mask_type: str, p: int) -> jnp.ndarray:
-    """Per-shard fused Gram + detect tail; psum'd correlation reductions.
-
-    Generalized ME (p>3) runs the sharded wide Gram
-    (``_wide_gram_psum_pallas``) and the p-scaled fused tail: the e_z/u
-    ring is p//2 deep and its taps reach p//2 further, so the image
-    exchanges a ``stencil_reach`` halo and the watermark a p//2 one (the
-    ring rows at interior seams are TRUE rows of the neighbor shard; the
-    clamp-ring fix keys off the global row offset and only fires at the
-    true image border)."""
-    from ..ops.pallas.fused import (fused_detect_partials_padded,
-                                    pipeline_geometry, stencil_reach)
-
-    h, w = img.shape[-2:]
-    batch_shape = img.shape[:-2]
-    n = lax.axis_size(SPACE_AXIS)
-    idx = lax.axis_index(SPACE_AXIS)
-    pad, strip, rows_padded = pipeline_geometry(h, w, mask_type, p)
-    # rows the tail kernel truly reads beyond the shard: the +/-(p//2) e_z
-    # ring rows' taps reach p//2 further (2 at the reference's p=3); the
-    # NVF mask over its +/-1 ring needs 1 + p//2
-    halo = stencil_reach(mask_type, p)
-    ring = (p if mask_type == "me" else 3) // 2   # u ring depth
-
-    ext = exchange_row_halo(img, halo)
-    img_p3 = _flatten_batch(_splice_pad(ext, halo, h, pad, rows_padded))
-    wm_p = _splice_pad(exchange_row_halo(watermark, ring), ring, h, pad,
-                       rows_padded)
-
-    if mask_type == "me" and p != 3:
-        # the tail's halo IS the wide Gram's 2h halo (stencil_reach at
-        # me): reuse the exchange, saving a ppermute round per step
-        coefficients, valid = _wide_gram_psum_pallas(img, p, ext2h=ext)
-    else:
-        coefficients, valid = _gram_psum(img_p3, h, w, pad, strip,
-                                         rows_padded)
-    row_start = jnp.reshape(idx * h, (1,)).astype(jnp.int32)
-    dot, norm_u, norm_z = fused_detect_partials_padded(
-        img_p3, wm_p, coefficients, h, w, pad, strip, rows_padded,
-        mask_type, p, row_start=row_start, total_rows=n * h)
-    dot = lax.psum(dot, SPACE_AXIS)
-    norm_u = lax.psum(norm_u, SPACE_AXIS)
-    norm_z = lax.psum(norm_z, SPACE_AXIS)
-    corr = dot / jnp.sqrt(norm_u * norm_z)
-    return jnp.where(valid, corr, 0.0).reshape(batch_shape)
-
-
-def _use_pallas_shard(img: jnp.ndarray, mask_type: str, p: int,
-                      impl: str) -> bool:
-    """Shard-level analog of ``pipelines._wide_me_fallback``: pallas runs
-    the fused kernels per shard, except generalized ME outside the wide
-    kernels' envelope, which degrades to the XLA shard implementation."""
-    if impl != "pallas":
-        return False
-    if mask_type != "me" or p == 3:
-        return True
-    return wide_shard_supported(img.shape[-2],
-                                lax.axis_size(SPACE_AXIS) * img.shape[-2],
-                                img.shape[-1], p)
-
-
 def _detect_shard(img: jnp.ndarray, watermark: jnp.ndarray, mask_type: str,
-                  p: int, impl: str = "xla") -> jnp.ndarray:
-    if _use_pallas_shard(img, mask_type, p, impl):
-        return _detect_shard_pallas(img, watermark, mask_type, p)
+                  p: int) -> jnp.ndarray:
     pred_p, coefficients, valid, e_z, mask = _analysis_and_mask(
         img, mask_type, p)
     u = mask * watermark
@@ -429,58 +243,8 @@ def _detect_shard(img: jnp.ndarray, watermark: jnp.ndarray, mask_type: str,
     return jnp.where(valid, corr, 0.0)
 
 
-def _detect_many_shard_pallas(img: jnp.ndarray, watermarks: jnp.ndarray,
-                              mask_type: str, p: int) -> jnp.ndarray:
-    """Fused multi-candidate identification per shard: the chunked
-    multi-candidate kernel reads the spliced image strip once per
-    nc-candidate chunk and accumulates per-candidate (dot, ||e_u||^2)
-    partials; psum over the space axis reduces the row shards."""
-    from ..ops.pallas.fused import (detect_many_chunk,
-                                    fused_detect_many_partials_padded,
-                                    stencil_reach)
-
-    h, w = img.shape[-2:]
-    batch_shape = img.shape[:-2]
-    n_dev = lax.axis_size(SPACE_AXIS)
-    idx = lax.axis_index(SPACE_AXIS)
-    n = watermarks.shape[0]
-    nc, pad, strip, rows_padded = detect_many_chunk(n, h, w, mask_type, p)
-    halo = stencil_reach(mask_type, p)
-    ring = (p if mask_type == "me" else 3) // 2
-
-    ext = exchange_row_halo(img, halo)
-    img_p = _flatten_batch(_splice_pad(ext, halo, h, pad, rows_padded))
-    n_pad = (n + nc - 1) // nc * nc
-    wms = watermarks if n_pad == n else jnp.concatenate(
-        [watermarks,
-         jnp.broadcast_to(watermarks[-1:], (n_pad - n, h, w))])
-    wm_p = _splice_pad(exchange_row_halo(wms, ring), ring, h, pad,
-                       rows_padded)
-
-    if mask_type == "me" and p != 3:
-        # stencil_reach at me == the wide Gram's 2h halo: reuse the
-        # exchange (see _detect_shard_pallas)
-        coefficients, valid = _wide_gram_psum_pallas(img, p, ext2h=ext)
-    else:
-        # the chunk splice works for the p=3 Gram kernel too: its lag
-        # reach is 2 rows and halo = stencil_reach >= 2 at every p
-        coefficients, valid = _gram_psum(img_p, h, w, pad, strip,
-                                         rows_padded)
-    row_start = jnp.reshape(idx * h, (1,)).astype(jnp.int32)
-    dot, norm_u, norm_z = fused_detect_many_partials_padded(
-        img_p, wm_p, coefficients, h, w, pad, strip, rows_padded, nc,
-        mask_type, p, row_start=row_start, total_rows=n_dev * h)
-    dot = lax.psum(dot, SPACE_AXIS)
-    norm_u = lax.psum(norm_u, SPACE_AXIS)
-    norm_z = lax.psum(norm_z, SPACE_AXIS)
-    corr = dot[:, :n] / jnp.sqrt(norm_u[:, :n] * norm_z[:, None])
-    corr = jnp.where(valid[:, None], corr, 0.0)
-    return corr.reshape(batch_shape + (n,))
-
-
 def _detect_many_shard(img: jnp.ndarray, watermarks: jnp.ndarray,
-                       mask_type: str, p: int,
-                       impl: str = "xla") -> jnp.ndarray:
+                       mask_type: str, p: int) -> jnp.ndarray:
     """Watermark identification per shard: (..., h_local, W) image rows x
     (N_local, h_local, W) candidate rows -> (..., N_local) correlations
     (batch-polymorphic over the image's leading dims, like every shard
@@ -491,15 +255,8 @@ def _detect_many_shard(img: jnp.ndarray, watermarks: jnp.ndarray,
     candidates — the mesh form of ``detect_many_pipeline``'s shared
     analysis (vs the reference's only option of looping full detections,
     ``Watermark.cpp:234-250``). Row reductions psum over the space axis;
-    the candidate axis needs no collectives. ``impl="pallas"`` runs the
-    fused multi-candidate kernel per shard (same envelope gate as
-    detection).
+    the candidate axis needs no collectives.
     """
-    if _use_pallas_shard(img, mask_type, p, impl):
-        from ..ops.pallas.fused import detect_many_supported
-        if detect_many_supported(watermarks.shape[0], img.shape[-2],
-                                 img.shape[-1], mask_type, p):
-            return _detect_many_shard_pallas(img, watermarks, mask_type, p)
     pred_p, coefficients, valid, e_z, mask = _analysis_and_mask(
         img, mask_type, p)
     u = mask[..., None, :, :] * watermarks          # (..., N_local, h, W)
@@ -516,67 +273,9 @@ def _detect_many_shard(img: jnp.ndarray, watermarks: jnp.ndarray,
     return jnp.where(valid[..., None], corr, 0.0)
 
 
-def _embed_shard_pallas(img: jnp.ndarray, output: jnp.ndarray,
-                        watermark: jnp.ndarray, strength_factor_value: float,
-                        mask_type: str, p: int):
-    """Per-shard fused Gram + embed-field kernels; psum/pmax reductions."""
-    from ..ops.pallas.common import pad_image
-    from ..ops.pallas.fused import (fused_embed_field_padded,
-                                    pipeline_geometry)
-
-    h, w = img.shape[-2:]
-    batch_shape = img.shape[:-2]
-    n = lax.axis_size(SPACE_AXIS)
-    pad, strip, rows_padded = pipeline_geometry(h, w, mask_type, p)
-    # the embed field reads +/-(p//2) rows (the ME error's taps / the NVF
-    # variance window); the p=3 ME analysis Gram additionally needs the
-    # +/-1 seam rows. The wide Gram needs 2h: exchange that once and give
-    # the field its p//2-halo slice, saving a ppermute round per step
-    half = max(1, p // 2)
-    wide = mask_type == "me" and p != 3
-    ext2h = exchange_row_halo(img, 2 * half) if wide else None
-    ext = (ext2h[..., half:-half, :] if wide
-           else exchange_row_halo(img, half))
-
-    img_p3 = _flatten_batch(_splice_pad(ext, half, h, pad, rows_padded))
-    wm_p = pad_image(watermark, pad, rows_padded)   # center rows only
-
-    nb = img_p3.shape[0]
-    if wide:
-        coefficients, valid = _wide_gram_psum_pallas(img, p, ext2h=ext2h)
-    elif mask_type == "me":
-        coefficients, valid = _gram_psum(img_p3, h, w, pad, strip,
-                                         rows_padded)
-    else:
-        coefficients = jnp.zeros((nb, 8), jnp.float32)
-        valid = jnp.ones((nb,), dtype=bool)
-    u_raw, sum_u2, max_e = fused_embed_field_padded(
-        img_p3, wm_p, coefficients, h, w, pad, strip, rows_padded,
-        mask_type, p)
-    sum_u2 = lax.psum(sum_u2, SPACE_AXIS)
-    max_e = lax.pmax(max_e, SPACE_AXIS)
-
-    total = float(n * h * w)
-    scale = strength_factor_value * jnp.sqrt(total) / jnp.sqrt(sum_u2)
-    strength = scale * max_e if mask_type == "me" else scale
-    u_raw = u_raw.reshape(batch_shape + (h, w))
-    scale = scale.reshape(batch_shape)
-    strength = strength.reshape(batch_shape)
-    valid = valid.reshape(batch_shape)
-    addend = u_raw * scale[..., None, None]
-    if output.ndim == img.ndim + 1:
-        addend = addend[..., None]
-    watermarked = jnp.clip(output + addend, 0.0, 255.0)
-    watermarked = _gate(watermarked, valid, output)
-    return watermarked, jnp.where(valid, strength, 0.0)
-
-
 def _embed_shard(img: jnp.ndarray, output: jnp.ndarray,
                  watermark: jnp.ndarray, strength_factor_value: float,
-                 mask_type: str, p: int, impl: str = "xla"):
-    if _use_pallas_shard(img, mask_type, p, impl):
-        return _embed_shard_pallas(img, output, watermark,
-                                   strength_factor_value, mask_type, p)
+                 mask_type: str, p: int):
     if mask_type == "me":
         coefficients, valid = _analysis_local(img, p)
         e = img - _predict_local(img, coefficients, p)
@@ -598,18 +297,11 @@ def _embed_shard(img: jnp.ndarray, output: jnp.ndarray,
     return watermarked, jnp.where(valid, strength, 0.0)
 
 
-def make_spatial_detect(mesh, mask_type: str, p: int = 3,
-                        impl: str = "xla"):
-    """jit-compiled row-sharded detect: (H, W) image, (H, W) W -> scalar.
-
-    impl="pallas" runs the fused Gram + detect-tail kernels per shard —
-    including the generalized-ME wide pipeline (sharded wide lag-Gram +
-    p-scaled fused tails) inside its envelope, ``wide_shard_supported``;
-    outside it the shards degrade to the XLA implementation.
-    """
+def make_spatial_detect(mesh, mask_type: str, p: int = 3):
+    """jit-compiled row-sharded detect: (H, W) image, (H, W) W -> scalar."""
     row_sharded = P(SPACE_AXIS, None)
     fn = shard_map(
-        partial(_detect_shard, mask_type=mask_type, p=p, impl=impl),
+        partial(_detect_shard, mask_type=mask_type, p=p),
         mesh=mesh, in_specs=(row_sharded, row_sharded), out_specs=P(),
         check_vma=False)
     return jax.jit(fn)
@@ -617,18 +309,14 @@ def make_spatial_detect(mesh, mask_type: str, p: int = 3,
 
 def make_spatial_embed(mesh, mask_type: str, strength_factor_value: float,
                        rows: int, cols: int, p: int = 3,
-                       channels: bool = False, impl: str = "xla"):
-    """jit-compiled row-sharded embed -> (watermarked, strength).
-
-    impl="pallas" runs the fused Gram + embed-field kernels per shard
-    (generalized-ME routing as in ``make_spatial_detect``).
-    """
+                       channels: bool = False):
+    """jit-compiled row-sharded embed -> (watermarked, strength)."""
     del rows, cols  # shard-local geometry + axis size determine the totals
     row_sharded = P(SPACE_AXIS, None)
     out_sharded = P(SPACE_AXIS, None, None) if channels else row_sharded
     fn = shard_map(
         partial(_embed_shard, mask_type=mask_type, p=p,
-                strength_factor_value=strength_factor_value, impl=impl),
+                strength_factor_value=strength_factor_value),
         mesh=mesh, in_specs=(row_sharded, out_sharded, row_sharded),
         out_specs=(out_sharded, P()), check_vma=False)
     return jax.jit(fn)

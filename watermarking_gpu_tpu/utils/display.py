@@ -2,7 +2,7 @@
 
 Parity with ``Watermark::displayArray`` (``/root/reference/Watermark_GPU/
 Watermark.cpp:253-258``), which opens an ``af::Window`` GUI loop. Headless
-TPU hosts have no display, so the TPU-native equivalent renders the array to
+accelerator hosts have no display, so this renders the array to
 a PNG (auto-scaled to 0..255 when needed) and optionally hands it to PIL's
 viewer when one exists.
 """

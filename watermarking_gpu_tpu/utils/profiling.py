@@ -1,7 +1,7 @@
 """Profiling hooks.
 
 The reference's only observability is wall-clock prints (SURVEY.md §5); the
-TPU framework adds an optional XLA profiler trace around any section —
+framework adds an optional JAX profiler trace around any section —
 inspect with TensorBoard or xprof.
 """
 

@@ -1,6 +1,6 @@
 """Wall-clock timing with device synchronization.
 
-TPU-native analog of the reference ``timer`` namespace
+Counterpart of the reference ``timer`` namespace
 (``/root/reference/Watermark_GPU/Utilities.hpp:20-26``): JAX dispatch is async,
 so timed sections must end with ``jax.block_until_ready`` to measure real
 device time (the reference relies on ``queue.finish()`` inside each op).

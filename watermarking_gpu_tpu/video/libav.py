@@ -14,7 +14,7 @@ module gives the framework both halves in-process:
 
 Both are wrapped in prefetching/buffering threads (``DecoderReader`` /
 ``EncoderWriter``) with the same depth-bounded ring semantics as the frame
-pump (``pump.py``), so decode/encode IO overlaps TPU compute.
+pump (``pump.py``), so decode/encode IO overlaps device compute.
 
 Everything degrades gracefully: ``available()`` is False when the shared
 library is not built (no libav dev packages) and callers fall back to the

@@ -1,7 +1,8 @@
 """Video watermarking pipeline: interval-sampled luma embed / detect.
 
 Re-designs the reference's synchronous frame loop
-(``/root/reference/Watermark_GPU/main.cpp:245-410``) TPU-first:
+(reference ``Watermark_GPU/main.cpp:245-410``) around batched device
+dispatch:
 
 * decode and encode run in child processes (or raw ``.yuv`` files when no
   ffmpeg binary exists), pumped by prefetching reader/writer threads
@@ -245,27 +246,11 @@ class FrameSink:
 _EMBED_BATCH_BUDGET_BYTES = 128 * 1024 * 1024
 
 
-def _check_video_dims(width: int, height: int, p: int = 3) -> None:
-    """Max-dims guard for video geometry — same bound the image path
-    enforces (cli/main.py; TPU analog of the reference's texture-size
-    check), raised here so an oversized stream fails with a clear message
-    instead of a raw VMEM compile error. The bound belongs to the fused
-    p=3 Pallas kernels (the video path's default configuration); at p>3
-    the pipelines route oversized geometries to the XLA formulation
-    themselves (pipelines._wide_me_fallback), so no guard is needed."""
-    if p != 3:
-        return
-    from ..ops.pallas.fused import MAX_ROWS, max_supported_cols
-
-    if height > MAX_ROWS or width > max_supported_cols("me", 3):
-        raise RuntimeError("Image dimensions too high for this device")
-
-
 def embed_video(settings: Settings, engine: BatchedWatermark | None = None,
                 out=None, stats: dict | None = None) -> int:
     """Watermark every interval-th frame; stream everything to the sink.
 
-    TPU-grade ingest (vs the reference's synchronous pinned-buffer loop,
+    Batched ingest (vs the reference's synchronous pinned-buffer loop,
     ``main.cpp:343-389``): sampled lumas cross the link as uint8, batch into
     one device dispatch each (``embed_luma_u8`` widens/truncates on device),
     and one batch stays in flight while the next accumulates — transfer and
@@ -281,11 +266,6 @@ def embed_video(settings: Settings, engine: BatchedWatermark | None = None,
     waits = {"read_s": 0.0, "collect_s": 0.0, "write_s": 0.0,
              "prep_s": 0.0, "emit_s": 0.0, "batches": 0}
     source = FrameSource(settings)
-    try:
-        _check_video_dims(source.width, source.height, settings.p)
-    except Exception:
-        source.close()
-        raise
     sink = FrameSink(settings, source)
     interval = settings.watermark_interval
     width, height = source.width, source.height
@@ -382,11 +362,6 @@ def detect_video(settings: Settings, engine: BatchedWatermark | None = None,
     """Print per-sampled-frame detector correlations (reference format)."""
     out = sys.stdout if out is None else out
     source = FrameSource(settings)
-    try:
-        _check_video_dims(source.width, source.height, settings.p)
-    except Exception:
-        source.close()
-        raise
     interval = settings.watermark_interval
     batch_size = max(1, settings.detect_batch)
     if engine is None:

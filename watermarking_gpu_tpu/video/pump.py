@@ -2,7 +2,7 @@
 
 Prefers the native C++ pump (``native/libwmpump.so``, built with
 ``make -C native``) — a reader/writer thread pair with a ring of frame
-buffers so decode/encode IO overlaps TPU compute, replacing the reference's
+buffers so decode/encode IO overlaps device compute, replacing the reference's
 synchronous pinned-buffer loop
 (``/root/reference/Watermark_GPU/main.cpp:271-275,319-340``). Falls back to a
 pure-Python threaded implementation with identical semantics when the shared
